@@ -1,0 +1,2 @@
+"""Plain-PyTorch ops of the port; hand-written CUDA kernels live in
+``ops.kernels``."""
