@@ -8,14 +8,27 @@ Run from the repository root on a machine with one CUDA card:
 Phases (each prints lines; any failure raises and exits non-zero):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build of the kernel library from ``xpysom_dask_tpu_torch/csrc``;
-  3. each kernel (K1 packed BMU argmin, K2 its top-2 form, K9 statistics
-     scatter) against its plain PyTorch version on the card: the flagship
-     shape, a ragged shape and a tie fixture, with CUDA-event timings;
-  4. the main path: ``XPySom(128, 128, 64)`` on 2^19 samples, QE before,
+  3. each GEMM-form and scatter kernel (K1 packed BMU argmin, K2 its top-2
+     form, K9 statistics scatter) against its plain PyTorch version on the
+     card: the flagship shape, a ragged shape and a tie fixture, with
+     CUDA-event timings;
+  4. each register-tiled kernel (K4 exact-f32 GEMM argmin, K5 L1, K6 odd
+     p = 3, K7 fractional p = 1.5 (its sqrt branch) and 2.7 (exp/log))
+     against its plain version: the flagship chunk,
+     K4 at the even-p expansion's width (p = 4, D' = 320), a ragged shape
+     and a tie and zero-distance fixture, with CUDA-event timings;
+  5. the main path: ``XPySom(128, 128, 64)`` on 2^19 samples, QE before,
      three epochs of a 10-epoch schedule, ``winner``, QE and TE, with the
      kernels' launch counters read around it;
-  5. determinism (a second run gives the same codebook bits) and one
-     epoch through the plain versions against the kernel path.
+  6. determinism (a second run gives the same codebook bits) and one
+     epoch through the plain versions against the kernel path;
+  7. the manhattan main path at the same width (QE, 2 of 10 epochs,
+     winner/QE/TE, counters, winners against the plain versions) and its
+     epoch time on device-resident chunks;
+  8. shorter runs (2^16 samples, one epoch) under cosine, norm_p with
+     p = 3, 1.5 and 4, and euclidean with ``bmu_precision='highest'``:
+     QE falls, the route's kernel launches, and the winners agree with
+     the plain versions'.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
@@ -39,6 +52,14 @@ VAL_RTOL = 1e-5
 # near-tie flips between two correct argmins)
 EPOCH_RTOL, EPOCH_ATOL = 1e-3, 1e-4
 
+# exact-f32 dot products (K4 and its cuBLAS plain version): each of the
+# two sums of D products errs by at most D * 2^-24 * sum_d |x_d||2 w_d|
+F32_DOT = 2.0**-24
+# K7 (accurate expf/logf, a few ulp per term): the JAX tests' near-tie
+# margin (tests/test_pallas.py, relative float64 runner-up margin) and
+# value tolerance
+FRAC_MARGIN, FRAC_RTOL = 1e-4, 1e-5
+
 REPLACES = {
     "bmu_argmin": ("xpysom_dask_tpu_torch/csrc/bmu.cu",
                    "xpysom_dask_tpu/ops/pallas/bmu.py:254"),
@@ -46,6 +67,14 @@ REPLACES = {
                  "xpysom_dask_tpu/ops/pallas/bmu.py:341"),
     "scatter_stats": ("xpysom_dask_tpu_torch/csrc/stats.cu",
                       "xpysom_dask_tpu/ops/pallas/stats.py:47"),
+    "bmu_highest": ("xpysom_dask_tpu_torch/csrc/highest.cu",
+                    "xpysom_dask_tpu/ops/pallas/bmu.py:439"),
+    "bmu_manhattan": ("xpysom_dask_tpu_torch/csrc/elementwise.cu",
+                      "xpysom_dask_tpu/ops/pallas/bmu.py:1019"),
+    "bmu_norm_p_odd": ("xpysom_dask_tpu_torch/csrc/elementwise.cu",
+                       "xpysom_dask_tpu/ops/pallas/bmu.py:1111"),
+    "bmu_norm_p_frac": ("xpysom_dask_tpu_torch/csrc/elementwise.cu",
+                        "xpysom_dask_tpu/ops/pallas/bmu.py:1175"),
 }
 
 
@@ -311,6 +340,353 @@ def phase_determinism(torch, data, kw, w3):
           f"max|dw| {dw.max():.3g} (rtol {EPOCH_RTOL}, atol {EPOCH_ATOL})")
 
 
+def _lp64(x, w, p):
+    """float64 sum_d |x_d - w_d|^p of the rows x (R, D) against w (R, D)."""
+    return (np.abs(x.astype(np.float64) - w.astype(np.float64)) ** p).sum(-1)
+
+
+def compare_tile(torch, name, kernel, plain, x, w, *args, exact, d64=None, band=None,
+                 val_tol=None):
+    """One register-tiled kernel against its plain version on (x, w).
+
+    ``exact``: indices and values bitwise equal. Otherwise indices may
+    differ only on rows where ``band(r, d)`` holds for the float64
+    distances ``d = d64(r, cols)`` of the two candidates (a near-tie), and
+    values agree within ``val_tol(r, v_plain)`` where the indices agree.
+    Returns the max absolute value error and the operands."""
+    xt = torch.from_numpy(x).cuda()
+    wt = torch.from_numpy(w).cuda()
+    extra = [torch.from_numpy(a).cuda() if isinstance(a, np.ndarray) else a for a in args]
+    i_k, v_k = kernel(xt, wt, *extra)
+    i_p, v_p = plain(xt, wt, *extra)
+    torch.cuda.synchronize()
+    i_k, v_k, i_p, v_p = (u.cpu().numpy() for u in (i_k, v_k, i_p, v_p))
+    n, xy = x.shape[0], w.shape[0]
+    require(i_k.shape == (n,) and i_k.dtype == np.int32, f"{name}: output malformed")
+    require(((i_k >= 0) & (i_k < xy)).all(), f"{name}: index out of range")
+    require(not np.isnan(v_k).any(), f"{name}: NaN values")
+    if exact:
+        require(np.array_equal(i_k, i_p), f"{name}: {int((i_k != i_p).sum())} indices differ")
+        require(np.array_equal(v_k.view(np.int32), v_p.view(np.int32)),
+                f"{name}: values differ in bits")
+        print(f"{name}: bitwise equal to the plain version ({n} rows, {xy} nodes)")
+        return 0.0, (xt, wt, *extra)
+    diff = np.nonzero(i_k != i_p)[0]
+    bad = [r for r in diff if not band(r, d64(r, [i_k[r], i_p[r]]))]
+    require(not bad, f"{name}: {len(bad)} of {len(diff)} index differences are not near-ties")
+    same = np.nonzero(i_k == i_p)[0]
+    err = np.abs(v_k[same].astype(np.float64) - v_p[same])
+    tol = np.array([val_tol(r, v_p[r]) for r in same])
+    require((err <= tol).all(), f"{name}: values disagree (max {err.max()})")
+    print(f"{name}: {len(diff)} near-tie index differences of {n}, max|dv| {err.max():.3g}")
+    return float(err.max()), (xt, wt, *extra)
+
+
+def _dot_checks(x, w, w_sq):
+    """K4's float64 distances and its near-tie band and value tolerance:
+    twice the f32 dot bound D * 2^-24 * sum_d |x_d||2 w_d| (two sums, the
+    kernel's and cuBLAS's), plus the rounding of the w_sq add."""
+    x64, w64, s64 = x.astype(np.float64), w.astype(np.float64), w_sq.astype(np.float64)
+    mag = np.abs(x64) @ (2 * np.abs(w64)).max(0)
+    tol = 2 * x.shape[1] * F32_DOT * mag + F32_DOT * np.abs(s64).max()
+
+    def d64(r, cols):
+        return -2.0 * w64[cols] @ x64[r] + s64[cols]
+
+    def band(r, d):
+        return abs(d[0] - d[1]) <= 2 * tol[r]
+
+    return d64, band, lambda r, _: tol[r]
+
+
+def _frac_checks(x, w, p):
+    """K7's float64 distances, the JAX tests' relative near-tie margin and
+    a relative value tolerance."""
+    def d64(r, cols):
+        return _lp64(x[r][None, :], w[cols], p)
+
+    def band(r, d):
+        return abs(d[0] - d[1]) <= FRAC_MARGIN * min(d)
+
+    return d64, band, lambda r, v: FRAC_RTOL * abs(float(v))
+
+
+def _compare_frac(torch, name, x, w, p):
+    from xpysom_dask_tpu_torch.ops.kernels import elementwise as ke
+
+    return compare_tile(torch, name, ke.bmu_norm_p_frac, ke.bmu_norm_p_frac_plain, x, w, p,
+                        exact=False, **dict(zip(("d64", "band", "val_tol"),
+                                                _frac_checks(x, w, p))))
+
+
+def phase_tile_kernels(torch, card):
+    """K4-K7 against their plain versions; returns timings and errors."""
+    from xpysom_dask_tpu_torch.ops.kernels import bmu as kb
+    from xpysom_dask_tpu_torch.ops.kernels import elementwise as ke
+
+    rng = np.random.RandomState(1)
+    f = FLAGSHIP
+    x = rng.rand(f["chunk"], f["d"]).astype(np.float32)
+    w = rng.rand(f["x"] * f["y"], f["d"]).astype(np.float32)
+    xr = rng.rand(1000, 5).astype(np.float32)
+    wr = (rng.rand(7 * 13, 5) * 2 - 1).astype(np.float32)
+    errs, ops = {}, {}
+
+    # K4: the centered euclidean search (mode 'highest') and the even-p
+    # expansion at p = 4 (D' = 320), as the main path packs them
+    for label, (xx, ww) in (("flagship", (x, w)), ("ragged 1000x91 D=5", (xr, wr))):
+        a, wc, wsq = kb.PackedCodebook(torch.from_numpy(ww), "highest").operands(
+            torch.from_numpy(xx))
+        a, wc, wsq = a.numpy(), wc.numpy(), wsq.numpy()
+        err, o = compare_tile(torch, f"K4 {label}", kb.bmu_highest, kb.bmu_highest_plain,
+                              a, wc, wsq, exact=False, **dict(zip(
+                                  ("d64", "band", "val_tol"), _dot_checks(a, wc, wsq))))
+        errs["bmu_highest"] = max(errs.get("bmu_highest", 0.0), err)
+        ops.setdefault("bmu_highest", o)
+    cb4 = kb.NormPEvenCodebook(torch.from_numpy(w), 4)
+    phi, psi, z = (t.numpy() for t in cb4.operands(torch.from_numpy(x)))
+    err, ops["bmu_highest D'=320"] = compare_tile(
+        torch, "K4 norm_p p=4 expansion (16384x16384, D'=320)", kb.bmu_highest,
+        kb.bmu_highest_plain, phi, psi, z, exact=False,
+        **dict(zip(("d64", "band", "val_tol"), _dot_checks(phi, psi, z))))
+    errs["bmu_highest"] = max(errs["bmu_highest"], err)
+    # the expansion's winners are the float64 norm_p winners up to near-ties
+    rows = 256
+    i4, _ = kb.bmu_highest(*ops["bmu_highest D'=320"])
+    i4 = i4[:rows].cpu().numpy()
+    d4 = np.stack([_lp64(x[r][None, :], w, 4) for r in range(rows)])
+    best = d4.min(1)
+    require((d4[np.arange(rows), i4] - best <= 1e-4 * best).all(),
+            "K4 p=4: a winner is not the float64 winner up to 1e-4")
+    # tie fixture: duplicated codebook rows in tiles 0 and 23
+    xt = np.zeros((4, 3), np.float32)
+    xt[1] = 5
+    wt = np.zeros((2100, 3), np.float32)
+    wt[7] = wt[1500] = 5
+    i, _ = kb.bmu_highest(torch.from_numpy(xt).cuda(), torch.from_numpy(wt).cuda(),
+                          torch.from_numpy((wt * wt).sum(1)).cuda())
+    require(i.cpu().tolist() == [0, 7, 0, 0], f"K4 tie fixture: {i.cpu().tolist()}")
+
+    # K5-K7 on the flagship chunk and the ragged shape
+    cases = (
+        ("bmu_manhattan", "K5", ke.bmu_manhattan, ke.bmu_manhattan_plain, (), None),
+        ("bmu_norm_p_odd", "K6 p=3", ke.bmu_norm_p_odd, ke.bmu_norm_p_odd_plain, (3,), None),
+        ("bmu_norm_p_frac", "K7 p=1.5", ke.bmu_norm_p_frac, ke.bmu_norm_p_frac_plain,
+         (1.5,), 1.5),
+        ("bmu_norm_p_frac", "K7 p=2.7", ke.bmu_norm_p_frac, ke.bmu_norm_p_frac_plain,
+         (2.7,), 2.7),
+    )
+    for key, label, kern, plain, args, p in cases:
+        for shape, (xx, ww) in (("flagship", (x, w)), ("ragged 1000x91 D=5", (xr, wr))):
+            if p is None:
+                err, o = compare_tile(torch, f"{label} {shape}", kern, plain, xx, ww, *args,
+                                      exact=True)
+            else:
+                err, o = _compare_frac(torch, f"{label} {shape}", xx, ww, p)
+            errs[key] = max(errs.get(key, 0.0), err)
+            if shape == "flagship":
+                ops[label] = (key, o[:2], args, kern, plain)
+        # tie and zero-distance fixture: samples equal to codebook rows 7,
+        # 10, 11, 12; row 7 duplicated at 9 (same tile) and 1500 (tile 23)
+        wz = np.random.RandomState(2).rand(2100, 8).astype(np.float32)
+        wz[9] = wz[1500] = wz[7]
+        xz = wz[[7, 10, 11, 12]].copy()
+        i, v = kern(torch.from_numpy(xz).cuda(), torch.from_numpy(wz).cuda(), *args)
+        require(i.cpu().tolist() == [7, 10, 11, 12] and not v.cpu().numpy().any(),
+                f"{label} tie/zero fixture: {i.cpu().tolist()} {v.cpu().tolist()}")
+        # all-equal distances: index 0 wins
+        i, v = kern(torch.zeros((5, 3)).cuda(), torch.ones((7, 3)).cuda(), *args)
+        require(i.cpu().tolist() == [0] * 5 and (v.cpu().numpy() == 3.0).all(),
+                f"{label} all-tie fixture: {i.cpu().tolist()}")
+        print(f"{label}: tie, zero-distance and all-tie fixtures pass")
+
+    # more counts of the one runtime multiply chain (term.reps in
+    # tile_argmin.cuh): odd p with 0, 4 and 8 multiplies; fractional p
+    # with 0, 3 and 4, through both branches (sqrt for 0.5 and 4.5)
+    for p in (1, 5, 9):
+        compare_tile(torch, f"K6 p={p} ragged", ke.bmu_norm_p_odd, ke.bmu_norm_p_odd_plain,
+                     xr, wr, p, exact=True)
+    for p in (0.5, 3.3, 4.5):
+        _compare_frac(torch, f"K7 p={p} ragged", xr, wr, p)
+
+    timings = {}
+    for label, key in (("K4 flagship", "bmu_highest"), ("K4 p=4 expansion D'=320", None)):
+        o = ops[key or "bmu_highest D'=320"]
+        t = (cuda_ms(torch, lambda: kb.bmu_highest(*o)),
+             cuda_ms(torch, lambda: kb.bmu_highest_plain(*o)))
+        if key:
+            timings[key] = t
+        print(f"time {label}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms (CUDA events; {card})")
+    for _, label, *_ in cases:
+        key, (xt_, wt_), args, kern, plain = ops[label]
+        t = (cuda_ms(torch, lambda: kern(xt_, wt_, *args)),
+             cuda_ms(torch, lambda: plain(xt_, wt_, *args), reps=3, warmup=1))
+        # the record keeps K7's sqrt branch (p=1.5); the exp/log branch
+        # (p=2.7) is printed
+        timings.setdefault(key, t)
+        print(f"time {label} flagship: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms "
+              f"(CUDA events; {card})")
+    return timings, errs
+
+
+def _winner_flips(name, som, ref, data, d64, band):
+    """Winners of ``som`` against ``ref`` (the plain versions) on ``data``:
+    every differing row a float64 near-tie, ``|d64(x, w2)[0] -
+    d64(x, w2)[1]| <= band(x, w2, d)`` for the two candidate rows ``w2``."""
+    a, b = som.predict(data), ref.predict(data)
+    w = som.get_weights().reshape(-1, data.shape[1]).astype(np.float64)
+    diff = np.nonzero(a != b)[0]
+    bad, worst = 0, 0.0
+    for r in diff:
+        x, w2 = data[r].astype(np.float64), w[[a[r], b[r]]]
+        d = d64(x, w2)
+        gap = abs(d[0] - d[1])
+        bad += gap > band(x, w2, d)
+        worst = max(worst, gap / max(abs(d[0]), abs(d[1])))
+    require(not bad, f"{name}: {bad} of {len(diff)} winner differences are not near-ties "
+            f"(largest relative float64 gap {worst:.3g})")
+    print(f"{name}: winners agree with the plain versions on {len(data) - len(diff)} of "
+          f"{len(data)}; the {len(diff)} others are near-ties (largest relative float64 "
+          f"gap {worst:.3g})")
+
+
+def phase_manhattan_path(torch):
+    """The main path under activation_distance='manhattan' at full width."""
+    from xpysom_dask_tpu_torch import XPySom, core
+    from xpysom_dask_tpu_torch.ops import kernels
+
+    f = FLAGSHIP
+    data = np.random.RandomState(3).rand(f["n"], f["d"]).astype(np.float32)
+    kw = dict(sigma=64, sigmaN=1, learning_rate=0.5, learning_rateN=0.01, random_seed=0,
+              activation_distance="manhattan")
+    som = XPySom(f["x"], f["y"], f["d"], **kw)
+    require(som._n_parallel == f["chunk"], f"chunk {som._n_parallel} != {f['chunk']}")
+
+    kernels.reset_launch_counts()
+    qe0 = som.quantization_error(data)
+    for e in range(2):
+        t0 = time.perf_counter()
+        som.train(data, 10, iter_beg=e, iter_end=e + 1)
+        print(f"manhattan path: epoch {e} of 10 in {time.perf_counter() - t0:.4f} s "
+              "(host chunking and upload included)")
+    win = som.predict(data[:4096])
+    qe = som.quantization_error(data)
+    te = som.topographic_error(data)
+    counts = kernels.launch_counts()
+    print(f"manhattan path: QE {qe0:.6f} -> {qe:.6f}, TE {te:.6f}; launch counts {counts}")
+
+    w = som.get_weights()
+    n_chunks = f["n"] // f["chunk"]
+    require(w.shape == (f["x"], f["y"], f["d"]) and np.isfinite(w).all(),
+            "manhattan codebook malformed")
+    require(np.isfinite(qe) and qe < qe0, f"manhattan QE did not fall: {qe0} -> {qe}")
+    require(0.0 <= te <= 1.0, f"manhattan TE {te} outside [0, 1]")
+    require(counts["bmu_manhattan"] >= 2 * n_chunks + 1, "K5 launched too few times")
+    require(counts["scatter_stats"] >= 2 * n_chunks, "K9 launched too few times")
+    require(counts["bmu_argmin"] >= 2 * n_chunks, "K1 (QE) launched too few times")
+    require(counts["bmu_top2"] >= 1, "K2 (TE) never launched")
+    # K5 equals its plain version bit for bit, so the winners must too
+    ref = XPySom.from_numpy(w, **kw, use_kernels=False)
+    require(np.array_equal(win, ref.predict(data[:4096])),
+            "manhattan winners differ from the plain versions'")
+    print("manhattan path: winners equal the plain versions' on 4096 rows")
+
+    # epoch time on device-resident chunks, between two synchronizations
+    chunks, mask, _ = som._chunked(data)
+    step = core.make_epoch_step(som._spec, 10)
+    ww = step(som._device_weights(), chunks, mask, 2)
+    times = []
+    for t in range(3, 6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ww = step(ww, chunks, mask, t)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = sorted(times)[1]
+    print(f"manhattan epoch on device-resident chunks (host clock, synchronized): "
+          f"{[round(t * 1e3, 3) for t in times]} ms; median {med * 1e3:.3f} ms = "
+          f"{f['n'] / med / 1e6:.3f} M samples/s")
+    return counts
+
+
+def phase_short_runs(torch):
+    """One epoch on 2^16 samples under each other configuration: QE falls,
+    the route's kernel launches, the winners agree with the plain
+    versions' up to float64 near-ties."""
+    from xpysom_dask_tpu_torch import XPySom
+    from xpysom_dask_tpu_torch.ops import kernels
+
+    f = FLAGSHIP
+    data = np.random.RandomState(4).rand(1 << 16, f["d"]).astype(np.float32)
+    probe = data[:4096]
+
+    d = f["d"]
+
+    def cos64(x, w2):
+        return 1 - (w2 @ x) / (np.linalg.norm(w2, axis=1) * np.linalg.norm(x))
+
+    def cos_band(x, w2, _):
+        # K1's packed floor on -x.w_hat (NEAR_TIE), in cosine units
+        w_hat = w2 / np.linalg.norm(w2, axis=1, keepdims=True)
+        return NEAR_TIE * (np.abs(w_hat) @ np.abs(x)).max() / np.linalg.norm(x)
+
+    def lp(p):
+        return lambda x, w2: _lp64(x[None, :], w2, p)
+
+    def centered(x, w2, som):
+        c = som.get_weights().reshape(-1, d).mean(0)
+        return np.abs(x - c), np.abs(w2 - c)
+
+    def highest_band(som):
+        # twice the exact-f32 dot bound (kernel and cuBLAS sums) on the
+        # centered operands of -2 x.w + |w|^2
+        def band(x, w2, _):
+            xc, wc = centered(x, w2, som)
+            return 2 * 2 * d * F32_DOT * (wc @ (2 * xc)).max()
+        return band
+
+    def expansion_band(som, p):
+        # the same bound on the expansion's D(p+1) products:
+        # sum_k |phi_k||psi_k| = sum_d (|x_d - c_d| + |w_d - c_d|)^p
+        def band(x, w2, _):
+            xc, wc = centered(x, w2, som)
+            return 2 * 2 * d * (p + 1) * F32_DOT * ((xc + wc) ** p).sum(1).max()
+        return band
+
+    configs = (
+        ("cosine", dict(activation_distance="cosine"), "bmu_argmin", cos64,
+         lambda som: cos_band),
+        ("norm_p p=3", dict(activation_distance="norm_p", activation_distance_kwargs={"p": 3}),
+         "bmu_norm_p_odd", lp(3), lambda som: lambda x, w2, d_: -1.0),  # bitwise: no flips
+        ("norm_p p=1.5", dict(activation_distance="norm_p",
+                              activation_distance_kwargs={"p": 1.5}), "bmu_norm_p_frac",
+         lp(1.5), lambda som: lambda x, w2, d_: FRAC_MARGIN * min(d_)),
+        ("norm_p p=4", dict(activation_distance="norm_p", activation_distance_kwargs={"p": 4}),
+         "bmu_highest", lp(4), lambda som: expansion_band(som, 4)),
+        ("euclidean highest", dict(bmu_precision="highest"), "bmu_highest",
+         lambda x, w2: ((x - w2) ** 2).sum(1), highest_band),
+    )
+    launches = {}
+    for name, kw, kernel, d64, band in configs:
+        kw = dict(kw, sigma=64, random_seed=0)
+        som = XPySom(f["x"], f["y"], f["d"], **kw)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        qe0 = som.quantization_error(data)
+        som.train(data, 1)
+        qe = som.quantization_error(data)
+        counts = kernels.launch_counts()
+        print(f"{name}: QE {qe0:.6f} -> {qe:.6f} in {time.perf_counter() - t0:.3f} s; "
+              f"launches {counts}")
+        require(np.isfinite(qe) and qe < qe0, f"{name}: QE did not fall: {qe0} -> {qe}")
+        require(counts[kernel] >= (1 << 16) // f["chunk"], f"{name}: {kernel} not launched")
+        require(counts["scatter_stats"] >= 1, f"{name}: K9 not launched")
+        launches[kernel] = launches.get(kernel, 0) + counts[kernel]
+        ref = XPySom.from_numpy(som.get_weights(), **kw, use_kernels=False)
+        _winner_flips(name, som, ref, probe, d64, band(som))
+    return launches
+
+
 def main():
     import torch
 
@@ -326,8 +702,21 @@ def main():
     smi = phase_card(torch)
     phase_build()
     timings, errs = phase_kernels(torch, smi)
+    t2, e2 = phase_tile_kernels(torch, smi)
+    timings.update(t2)
+    errs.update(e2)
     data, kw, w3, counts = phase_main_path(torch)
     phase_determinism(torch, data, kw, w3)
+    del data
+    counts_l1 = phase_manhattan_path(torch)
+    # each kernel's launches on the main path that runs it: the flagship
+    # path for K1/K2/K9, the manhattan path for K5; K4, K6 and K7 serve
+    # the shorter runs, whose counts are checked there
+    launches = dict(counts)
+    launches["bmu_manhattan"] = counts_l1["bmu_manhattan"]
+    short = phase_short_runs(torch)
+    for name in ("bmu_highest", "bmu_norm_p_odd", "bmu_norm_p_frac"):
+        launches[name] = short[name]
     require("jax" not in sys.modules, "JAX was imported")
 
     record = {
@@ -338,12 +727,12 @@ def main():
                 "route": "cuda",
                 "source": REPLACES[name][0],
                 "replaces": REPLACES[name][1],
-                "launches": counts[name],
+                "launches": launches[name],
                 "max_abs_err": errs[name],
                 "ms": timings[name][0],
                 "plain_ms": timings[name][1],
             }
-            for name in ("bmu_argmin", "bmu_top2", "scatter_stats")
+            for name in REPLACES
         ],
     }
     print(json.dumps(record))

@@ -4,6 +4,8 @@ runs its plain PyTorch version, which is what these tests hold against the
 JAX kernels; the CUDA kernels themselves are checked against the same
 plain versions on the card by ``chip_smoke.py``."""
 
+from pathlib import Path
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -14,6 +16,7 @@ from xpysom_dask_tpu.ops.pallas.stats import scatter_stats as jax_scatter_stats
 from xpysom_dask_tpu_torch.ops import kernels
 from xpysom_dask_tpu_torch.ops.distances import fp32_matmul
 from xpysom_dask_tpu_torch.ops.kernels import bmu as kb
+from xpysom_dask_tpu_torch.ops.kernels import elementwise as ke
 from xpysom_dask_tpu_torch.ops.kernels import stats as ks
 
 
@@ -182,7 +185,15 @@ def test_launch_counters_stay_zero_on_cpu():
     kb.bmu_argmin(*cb.operands(x))
     kb.bmu_top2(*cb.operands(x))
     ks.scatter_stats(x, torch.ones(50), torch.zeros(50, dtype=torch.int32), 30)
-    assert kernels.launch_counts() == {"bmu_argmin": 0, "bmu_top2": 0, "scatter_stats": 0}
+    kb.PackedCodebook(w, "highest").argmin(x)
+    ke.bmu_manhattan(x, w)
+    ke.bmu_norm_p_odd(x, w, 3)
+    ke.bmu_norm_p_frac(x, w, 1.5)
+    assert kernels.launch_counts() == {name: 0 for name in kernels.KERNELS}
+    assert set(kernels.KERNELS) == {
+        "bmu_argmin", "bmu_top2", "scatter_stats", "bmu_highest", "bmu_manhattan",
+        "bmu_norm_p_odd", "bmu_norm_p_frac",
+    }
 
 
 def test_wrappers_validate_inputs():
@@ -222,5 +233,211 @@ def test_kernel_build_is_lazy():
     from xpysom_dask_tpu_torch.ops.kernels import build
 
     assert build._lib is None
-    assert set(build.SOURCES) == {"bmu.cu", "stats.cu"}
+    assert set(build.SOURCES) == {"bmu.cu", "stats.cu", "highest.cu", "elementwise.cu"}
+    assert build.HEADERS == ("tile_argmin.cuh",)
+    csrc = Path(kb.__file__).resolve().parents[2] / "csrc"
+    for name in build.SOURCES + build.HEADERS:
+        assert (csrc / name).is_file()
+    # every C entry point the wrappers call has a signature and a source
+    text = "".join((csrc / name).read_text() for name in build.SOURCES)
+    for entry in build._SIGNATURES:
+        assert f"int {entry}(" in text
     assert build.build_dir().parts[-2:] == ("build", "kernels")
+
+
+# -- K4: the exact-f32 GEMM argmin (mode 'highest') ---------------------------
+
+
+def _dot_band(x, w):
+    """Per-row float64 near-tie band of an f32 dot search: twice the bound
+    D * 2^-24 * sum_d |x_d||2 w_d| (two differently ordered sums)."""
+    return 2 * 2 * x.shape[1] * 2.0**-24 * (np.abs(x).astype(np.float64) @ np.abs(2 * w).max(0))
+
+
+def _assert_winners(got, want, d64, band):
+    """Equal winners except rows whose two candidates are float64 near-ties
+    within ``band`` (per row)."""
+    rows = np.nonzero(got != want)[0]
+    for r in rows:
+        assert abs(d64[r, got[r]] - d64[r, want[r]]) <= band[r], (r, got[r], want[r])
+
+
+@pytest.mark.parametrize("n,xy,d", [(300, 333, 7), (64, 25, 3), (1000, 91, 5), (256, 2048, 64)])
+def test_plain_k4_matches_pallas_highest_interpret(n, xy, d):
+    rng = np.random.RandomState(xy + 1)
+    x = (rng.rand(n, d) * 2 + 1).astype(np.float32)  # offset data: centering matters
+    w = (rng.rand(xy, d) * 2 + 1).astype(np.float32)
+    cb = kb.PackedCodebook(torch.from_numpy(w), "highest")
+    i, v = cb.argmin(torch.from_numpy(x))
+    i_ref, v_ref = pl_bmu.bmu_euclidean(
+        jnp.asarray(x), jnp.asarray(w), interpret=True, mode="highest",
+        center=jnp.asarray(cb.center.numpy()),
+    )
+    assert i.dtype == torch.int32 and v.dtype == torch.float32
+    x64, w64 = x.astype(np.float64), w.astype(np.float64)
+    d64 = ((x64[:, None] - w64[None]) ** 2).sum(-1)
+    xc, wc = x - cb.center.numpy(), w - cb.center.numpy()
+    _assert_winners(i.numpy(), np.asarray(i_ref), d64, _dot_band(xc, wc))
+    same = i.numpy() == np.asarray(i_ref)
+    np.testing.assert_allclose(v.numpy()[same], np.asarray(v_ref)[same], rtol=2e-4, atol=1e-5)
+    # the winner is the float64 winner up to the same band
+    _assert_winners(i.numpy(), d64.argmin(1), d64, _dot_band(xc, wc))
+
+
+def test_k4_tie_fixture_first_index_across_tiles():
+    x = np.zeros((4, 3), np.float32)
+    x[1] = 5
+    w = np.zeros((2100, 3), np.float32)
+    w[7] = w[1500] = 5
+    for center in (True, False):
+        cb = kb.PackedCodebook(torch.from_numpy(w), "highest", center=center)
+        i, _ = cb.argmin(torch.from_numpy(x))
+        assert i.tolist() == [0, 7, 0, 0]
+
+
+@pytest.mark.parametrize("p", [2, 4, 6, 4.0])
+@pytest.mark.parametrize("mode", ["highest", "packed"])
+def test_norm_p_even_matches_pallas_interpret(p, mode):
+    rng = np.random.RandomState(int(p))
+    x = rng.rand(80, 5).astype(np.float32)
+    w = rng.rand(200, 5).astype(np.float32)
+    i, v = kb.bmu_norm_p_even(torch.from_numpy(x), torch.from_numpy(w), p=p, mode=mode)
+    i_ref, v_ref = pl_bmu.bmu_norm_p_even(
+        jnp.asarray(x), jnp.asarray(w), p=p, mode=mode, interpret=True
+    )
+    d64 = (np.abs(x[:, None].astype(np.float64) - w[None]) ** p).sum(-1)
+    # the expansion's operands: phi (N, D(p+1)) and -psi/2 (XY, D(p+1))
+    phi, psi_half, _ = (t.numpy() for t in kb.NormPEvenCodebook(
+        torch.from_numpy(w), p, "highest").operands(torch.from_numpy(x)))
+    band = _dot_band(phi, psi_half)
+    if mode == "packed":  # the bf16 split's floor, 2^-17 of the same sum
+        band = band + 2.0**-17 * (np.abs(phi) @ np.abs(2 * psi_half).max(0))
+    _assert_winners(i.numpy(), np.asarray(i_ref), d64, band)
+    _assert_winners(i.numpy(), d64.argmin(1), d64, band)
+    if mode == "highest":
+        same = i.numpy() == np.asarray(i_ref)
+        np.testing.assert_allclose(v.numpy()[same], np.asarray(v_ref)[same], rtol=2e-4, atol=1e-5)
+        np.testing.assert_allclose(v.numpy(), d64[np.arange(80), i.numpy()], rtol=2e-4, atol=1e-5)
+
+
+def test_norm_p_even_rejects_bad_p_and_margin():
+    x = torch.rand(4, 3)
+    for p in (3, 2.5, 0, -2):
+        with pytest.raises(ValueError, match="even"):
+            kb.bmu_norm_p_even(x, x, p=p)
+    with pytest.raises(ValueError, match="margin"):
+        kb.bmu_norm_p_even(x, x, p=4, mode="margin")
+    with pytest.raises(ValueError, match="serve"):
+        kb.PackedCodebook(x, "split3")
+
+
+# -- cosine glue over K1 / K4 ------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", ["packed", "highest"])
+def test_bmu_cosine_matches_pallas_interpret(mode):
+    rng = np.random.RandomState(5)
+    x = (rng.randn(120, 6) * 2).astype(np.float32)
+    w = (rng.randn(260, 6) * 2).astype(np.float32)
+    w[7] = 0.0  # zero codebook row: distance 1
+    x[3] = 0.0  # zero sample row: distance 1 everywhere, index 0
+    i, v = kb.bmu_cosine(torch.from_numpy(x), torch.from_numpy(w), mode=mode)
+    i_ref, v_ref = pl_bmu.bmu_cosine(jnp.asarray(x), jnp.asarray(w), interpret=True, mode=mode)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
+    np.testing.assert_allclose(v.numpy(), np.asarray(v_ref), rtol=1e-5, atol=1e-6)
+    x64, w64 = x.astype(np.float64), w.astype(np.float64)
+    den = np.linalg.norm(x64, axis=1, keepdims=True) * np.linalg.norm(w64, axis=1)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        ref = 1 - np.nan_to_num((x64 @ w64.T) / den)
+    np.testing.assert_array_equal(i.numpy(), ref.argmin(1))
+    np.testing.assert_allclose(v.numpy(), ref.min(1), rtol=1e-4, atol=1e-5)
+    assert i[3] == 0 and v[3] == 1.0
+
+
+# -- K5-K7: the elementwise searches -----------------------------------------
+
+
+@pytest.mark.parametrize("n,xy,d", [(150, 400, 9), (37, 91, 5), (64, 300, 24), (5, 7, 3)])
+def test_plain_k5_bitwise_equals_pallas_interpret(n, xy, d):
+    rng = np.random.RandomState(n + xy)
+    x = rng.rand(n, d).astype(np.float32)
+    w = rng.rand(xy, d).astype(np.float32)
+    if n == 5:  # every distance ties: index 0 wins
+        x, w = np.zeros_like(x), np.ones_like(w)
+    i, v = ke.bmu_manhattan(torch.from_numpy(x), torch.from_numpy(w))
+    i_ref, v_ref = pl_bmu.bmu_manhattan(jnp.asarray(x), jnp.asarray(w), interpret=True)
+    assert i.dtype == torch.int32 and v.dtype == torch.float32
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
+    np.testing.assert_array_equal(_bits(v.numpy()), _bits(np.asarray(v_ref)))
+    ref = np.abs(x[:, None].astype(np.float64) - w[None]).sum(-1)
+    np.testing.assert_array_equal(i.numpy(), ref.argmin(1))
+
+
+@pytest.mark.parametrize("p", [3, 5, 3.0, 1])
+def test_plain_k6_matches_pallas_interpret(p):
+    rng = np.random.RandomState(3)
+    x = rng.rand(300, 24).astype(np.float32)
+    w = rng.rand(517, 24).astype(np.float32)
+    i, v = ke.bmu_norm_p_odd(torch.from_numpy(x), torch.from_numpy(w), p)
+    i_ref, v_ref = pl_bmu.bmu_norm_p_odd(jnp.asarray(x), jnp.asarray(w), p=p, interpret=True)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
+    np.testing.assert_allclose(v.numpy(), np.asarray(v_ref), rtol=1e-6)
+    d64 = (np.abs(x[:, None].astype(np.float64) - w[None]) ** int(p)).sum(-1)
+    np.testing.assert_array_equal(i.numpy(), d64.argmin(1))
+    # exact duplicate codebook rows: the first index wins
+    w_tie = np.vstack([w[:5], w[:5]])
+    i_t, v_t = ke.bmu_norm_p_odd(torch.from_numpy(w[:5].copy()), torch.from_numpy(w_tie), p)
+    assert i_t.tolist() == list(range(5)) and not v_t.any()
+
+
+@pytest.mark.parametrize("p", [0.5, 1.5, 2.5, 3.7])
+def test_plain_k7_matches_pallas_interpret(p):
+    rng = np.random.RandomState(int(p * 10))
+    x = rng.rand(300, 24).astype(np.float32)
+    w = rng.rand(517, 24).astype(np.float32)
+    i, v = ke.bmu_norm_p_frac(torch.from_numpy(x), torch.from_numpy(w), p)
+    i_ref, v_ref = pl_bmu.bmu_norm_p_frac(jnp.asarray(x), jnp.asarray(w), p=p, interpret=True)
+    i, i_ref = i.numpy(), np.asarray(i_ref)
+    d64 = (np.abs(x[:, None].astype(np.float64) - w[None]) ** p).sum(-1)
+    order = np.sort(d64, axis=1)
+    margin = (order[:, 1] - order[:, 0]) / order[:, 0]
+    assert not np.any((i != i_ref) & (margin > 1e-4))
+    assert not np.any((i != d64.argmin(1)) & (margin > 1e-4))
+    same = i == i_ref
+    np.testing.assert_allclose(v.numpy()[same], np.asarray(v_ref)[same], rtol=1e-5)
+    # zero distance: a sample equal to a codebook row wins with 0
+    i_z, v_z = ke.bmu_norm_p_frac(torch.from_numpy(w[10:13].copy()), torch.from_numpy(w), p)
+    assert i_z.tolist() == [10, 11, 12] and not v_z.any()
+    # exact duplicate codebook rows: the first index wins
+    w_tie = np.vstack([w[:5], w[:5]])
+    i_t, _ = ke.bmu_norm_p_frac(torch.from_numpy(w[:5].copy()), torch.from_numpy(w_tie), p)
+    assert i_t.tolist() == list(range(5))
+
+
+def test_elementwise_wrappers_reject_bad_p_with_the_jax_messages():
+    x = torch.rand(4, 3)
+    for p in (4, 2.5, 0, -1):
+        with pytest.raises(ValueError, match="positive odd integer"):
+            ke.bmu_norm_p_odd(x, x, p)
+        with pytest.raises(ValueError, match="positive odd integer"):
+            pl_bmu.bmu_norm_p_odd(jnp.asarray(x.numpy()), jnp.asarray(x.numpy()), p=p,
+                                  interpret=True)
+    for p in (2, 2.0, -0.5, 0):
+        with pytest.raises(ValueError, match="non-integer"):
+            ke.bmu_norm_p_frac(x, x, p)
+    with pytest.raises(TypeError, match="float32"):
+        ke.bmu_manhattan(x.double(), x)
+    with pytest.raises(ValueError, match=r"\(XY, D\)"):
+        ke.bmu_manhattan(x, x[:, :2])
+    with pytest.raises(ValueError, match="w_sq"):
+        kb.bmu_highest(x, x, torch.zeros(3, 1))
+
+
+def test_elementwise_codebook_routes_kernel_and_plain_alike():
+    rng = np.random.RandomState(4)
+    x = torch.from_numpy(rng.rand(40, 6).astype(np.float32))
+    w = torch.from_numpy(rng.rand(50, 6).astype(np.float32))
+    for kind, p in (("manhattan", None), ("norm_p_odd", 3), ("norm_p_frac", 2.5)):
+        cb = ke.ElementwiseCodebook(w, kind, p)
+        a, b = cb.argmin(x), cb.argmin(x, use_kernels=False)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])

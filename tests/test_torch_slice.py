@@ -147,15 +147,29 @@ def test_plain_and_kernel_routes_agree_on_cpu():
     np.testing.assert_array_equal(a.get_weights(), b.get_weights())
 
 
-def test_from_numpy_round_trips_a_jax_codebook():
+@pytest.mark.parametrize(
+    "kw",
+    [
+        {},
+        {"activation_distance": "manhattan"},
+        {"activation_distance": "norm_p", "activation_distance_kwargs": {"p": 4}},
+    ],
+    ids=["euclidean", "manhattan", "norm_p4"],
+)
+def test_from_numpy_round_trips_a_jax_codebook(kw):
+    """Both packages score the same (JAX-trained) codebook: equal winners
+    and QE, and the same continued training."""
     rng = np.random.RandomState(8)
     data = rng.rand(250, 4).astype(np.float32)
-    ref = JaxSom(6, 5, 4, random_seed=5)
+    ref = JaxSom(6, 5, 4, random_seed=5, **kw)
     ref.train(data, 6, iter_end=3)
-    ours = XPySom.from_numpy(ref._weights, random_seed=5, device="cpu")
+    ours = XPySom.from_numpy(ref._weights, random_seed=5, device="cpu", **kw)
     np.testing.assert_array_equal(ours.get_weights(), ref._weights)
     assert isinstance(ours.get_weights(), np.ndarray)
     np.testing.assert_array_equal(ours.predict(data), ref.predict(data))
+    np.testing.assert_allclose(
+        ours.quantization_error(data), ref.quantization_error(data), rtol=1e-5
+    )
     ref.train(data, 6, iter_beg=3, iter_end=6)
     ours.train(data, 6, iter_beg=3, iter_end=6)
     np.testing.assert_allclose(ours.get_weights(), ref._weights, rtol=1e-3, atol=1e-4)
@@ -180,7 +194,9 @@ def test_launch_counters_stay_zero_after_cpu_training():
     som = XPySom(4, 4, 3, random_seed=0, device="cpu").train(data, 2)
     som.quantization_error(data)
     som.topographic_error(data)
-    assert kernels.launch_counts() == {"bmu_argmin": 0, "bmu_top2": 0, "scatter_stats": 0}
+    for kw in ({"activation_distance": "manhattan"}, {"bmu_precision": "highest"}):
+        XPySom(4, 4, 3, random_seed=0, device="cpu", **kw).train(data, 1)
+    assert kernels.launch_counts() == {name: 0 for name in kernels.KERNELS}
 
 
 def test_edge_contracts():
@@ -199,7 +215,7 @@ def test_edge_contracts():
     "kwargs",
     [
         {"topology": "hexagonal"},
-        {"activation_distance": "cosine"},
+        {"bmu_precision": "split3"},
         {"bmu_precision": "bf16"},
         {"use_dask": True},
     ],
@@ -228,8 +244,12 @@ def test_unported_methods_and_inputs_raise():
 
 def test_port_never_imports_jax():
     code = (
-        "import sys, xpysom_dask_tpu_torch, xpysom_dask_tpu_torch.core, "
+        "import sys, numpy as np, xpysom_dask_tpu_torch, xpysom_dask_tpu_torch.core, "
         "xpysom_dask_tpu_torch.ops.kernels.build; "
+        "d = np.random.RandomState(0).rand(64, 3).astype(np.float32); "
+        "[xpysom_dask_tpu_torch.XPySom(3, 3, 3, device='cpu', activation_distance=a, "
+        "activation_distance_kwargs=k).train(d, 1).quantization_error(d) for a, k in "
+        "(('manhattan', {}), ('cosine', {}), ('norm_p', {'p': 1.5}), ('norm_p', {'p': 4}))]; "
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True)

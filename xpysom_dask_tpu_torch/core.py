@@ -1,12 +1,19 @@
 """Functional training/inference core of the batch SOM, in PyTorch.
 
-Counterpart of ``xpysom_dask_tpu/core.py``, euclidean route only. The
-algorithm is the same: per chunk, the BMU search (K1) and a scatter of
+Counterpart of ``xpysom_dask_tpu/core.py``. The algorithm is the same:
+per chunk, the BMU search under the activation distance and a scatter of
 ``[x | 1]`` rows into per-BMU sums ``S`` and counts ``cnt`` (K9); per
 epoch, the separable neighborhood operator and the merge
 ``W' = where(den ≠ 0, num / den, W)``. Where the JAX core runs
 ``lax.fori_loop``/``lax.scan`` under ``jit``, this core runs Python loops
 over epochs and chunks of eager launches.
+
+The BMU search routes as the JAX core's ``_bmu_chunk`` does
+(``_kernel_bmu_kind``): euclidean and cosine through the GEMM-form
+kernels (K1 in mode ``packed``, K4 in mode ``highest``), manhattan and
+odd/fractional-p norm_p through the elementwise kernels (K5–K7), even-p
+norm_p through its binomial expansion on K4 (or K1), and the ``_no_opt``
+names and ``p <= 0`` through a plain distance matrix.
 
 ``SomSpec.use_kernels`` selects the CUDA kernels (True, the default) or
 their plain PyTorch versions (False) for tensors on the card; on CPU
@@ -24,7 +31,9 @@ import torch
 from .ops.decays import DECAY_REGISTRY
 from .ops.distances import DistanceFunction
 from .ops.kernels import bmu as kbmu
+from .ops.kernels import elementwise as kel
 from .ops.kernels import stats as kstats
+from .ops.kernels import tile as ktile
 from .ops.neighborhoods import apply_operator, neighborhood_operator
 
 _F32 = torch.float32
@@ -47,7 +56,10 @@ _MODES = ("packed", "bf16", "split2", "split3", "highest", "margin")
 class SomSpec:
     """Static SOM configuration (the reference constructor surface); the
     codebook lives outside. ``bmu_precision`` is validated against the
-    JAX package's modes, of which the port serves ``'packed'``."""
+    JAX package's modes and resolved as it resolves them: ``None`` means
+    ``'highest'`` for norm_p (its expansion cancels below exact
+    precision) and ``'packed'`` otherwise. The port serves ``'packed'``
+    and ``'highest'``."""
 
     x: int
     y: int
@@ -63,20 +75,29 @@ class SomSpec:
     distance: str = "euclidean"
     distance_kwargs: Tuple[Tuple[str, object], ...] = ()
     compact_support: bool = False
-    bmu_precision: Optional[str] = None  # None = 'packed'
+    bmu_precision: Optional[str] = None  # None = 'highest' for norm_p, else 'packed'
     use_kernels: Optional[bool] = None  # None = True
 
     def __post_init__(self):
-        mode = "packed" if self.bmu_precision is None else str(self.bmu_precision).lower()
-        if mode not in _MODES:
-            raise ValueError(
-                f"bmu_precision={self.bmu_precision!r} not recognized "
-                "(packed|bf16|split2|split3|highest|margin)"
-            )
-        if mode != "packed":
+        if self.bmu_precision is None:
+            mode = "highest" if self.distance == "norm_p" else "packed"
+        else:
+            mode = str(self.bmu_precision).lower()
+            if mode not in _MODES:
+                raise ValueError(
+                    f"bmu_precision={self.bmu_precision!r} not recognized "
+                    "(packed|bf16|split2|split3|highest|margin)"
+                )
+            if mode == "margin" and self.distance == "norm_p":
+                raise ValueError(
+                    "bmu_precision='margin' is not supported with norm_p "
+                    "activations (the expansion's cancellation defeats the "
+                    "margin gate); use 'highest'"
+                )
+        if mode not in kbmu.GEMM_MODES:
             raise NotImplementedError(
                 f"bmu_precision={mode!r} is not ported yet (ROADMAP Queue 1 "
-                "item 6); the port serves 'packed'"
+                "item 6, the next slice); the port serves 'packed' and 'highest'"
             )
         object.__setattr__(self, "bmu_precision", mode)
         object.__setattr__(
@@ -118,11 +139,92 @@ def chunk_data(
     return padded.reshape(c, chunk, d), mask.reshape(c, chunk), n
 
 
-def _bmu_chunk(spec: SomSpec, cb: kbmu.PackedCodebook, x):
-    """Flat BMU indices (int32) for one chunk: the euclidean search,
-    centered by the codebook mean (``PackedCodebook``)."""
-    fn = kbmu.bmu_argmin if spec.use_kernels else kbmu.bmu_argmin_plain
-    idx, _ = fn(*cb.operands(x))
+def _kernel_bmu_kind(dist: DistanceFunction, use_kernels: bool = True):
+    """Which kernel route serves this activation: ``'euclidean'`` /
+    ``'cosine'`` (GEMM form: K1 or K4 by mode), ``'norm_p_even'`` (its
+    binomial expansion on the GEMM form), ``'manhattan'`` /
+    ``'norm_p_odd'`` / ``'norm_p_frac'`` (K5 / K6 / K7), or None (the plain
+    distance matrix + argmin: no kernel). Counterpart of the JAX core's
+    ``_pallas_bmu_kind``.
+
+    Bounds kept, and why:
+      * ``use_kernels=False`` → None, as ``use_pallas=False`` is in JAX.
+        (``_bmu_chunk`` does not ask this: with ``use_kernels=False`` it
+        runs each route's plain versions, so kernel and plain runs search
+        the same way. The model asks it to size its default chunk.)
+      * the ``_no_opt`` names → None: they name the reference's unoptimized
+        path.
+      * norm_p: even p ≥ 2 → the expansion; odd p ≥ 1 → K6; non-integer
+        p > 0 → K7; p ≤ 0 → None (no expansion exists and the kernels'
+        terms assume p > 0; the matrix path computes them through pow).
+        Integer-valued floats count as integers.
+    Bounds dropped: the JAX gate's ``_PALLAS_MAX_D = 2048``,
+    ``_PALLAS_MANHATTAN_MAX_D = 256`` and ``_ELEMENTWISE_UNROLL_BUDGET``
+    are Mosaic limits (VMEM size, a trace-time unroll). The CUDA kernels
+    loop over d and over the p chain at run time with fixed shared-memory
+    tiles, so no width or p bound applies and the gate, unlike the JAX
+    one, takes no feature width. Operands beyond 32-bit sizes raise in the
+    wrappers."""
+    if not use_kernels:
+        return None
+    if dist.name in ("euclidean", "cosine", "manhattan"):
+        return dist.name
+    if dist.name == "norm_p":
+        p = dist.kwargs.get("p", 2)
+        if float(p).is_integer():
+            ip = int(p)
+            if ip >= 2 and ip % 2 == 0:
+                return "norm_p_even"
+            if ip >= 1 and ip % 2 == 1:
+                return "norm_p_odd"
+        elif float(p) > 0:
+            return "norm_p_frac"
+    return None
+
+
+class _MatrixSearch:
+    """The route without a kernel: the (N, XY) distance matrix of the
+    activation, then the first-index argmin (the JAX package's XLA
+    path)."""
+
+    def __init__(self, dist: DistanceFunction, w_flat):
+        self.dist = dist
+        self.w = w_flat.float()
+        self.w_sq = torch.sum(self.w * self.w, dim=1, keepdim=True) if dist.can_cache else None
+
+    def argmin(self, x, use_kernels=True):
+        return ktile.first_argmin(self.dist.flat(x, self.w, self.w_sq))
+
+
+def _searcher(spec: SomSpec, dist: DistanceFunction, w_flat):
+    """The codebook side of the BMU search under ``dist``, built once per
+    epoch (or scoring call) and shared by every chunk: an object with
+    ``argmin(x, use_kernels) -> (idx, val)``. The routes of the JAX core's
+    ``_bmu_chunk``; ``dist`` is passed apart from the spec because QE
+    searches by euclidean distance whatever the activation, under the
+    spec's mode."""
+    kind = _kernel_bmu_kind(dist)
+    mode = spec.bmu_precision
+    if kind == "euclidean":
+        return kbmu.PackedCodebook(w_flat, mode)
+    if kind == "cosine":
+        return kbmu.cosine_codebook(w_flat, mode)
+    if kind == "norm_p_even":
+        return kbmu.NormPEvenCodebook(w_flat, dist.kwargs.get("p", 2), mode)
+    if kind == "manhattan":
+        return kel.ElementwiseCodebook(w_flat, kind)
+    if kind in ("norm_p_odd", "norm_p_frac"):
+        # no default p: the gate routes here only for an explicit odd or
+        # non-integer p
+        return kel.ElementwiseCodebook(w_flat, kind, dist.kwargs["p"])
+    return _MatrixSearch(dist, w_flat)
+
+
+def _bmu_chunk(spec: SomSpec, search, x):
+    """Flat BMU indices (int32) of one chunk through ``search``
+    (``_searcher``): the kernel, or its plain version when
+    ``spec.use_kernels`` is False."""
+    idx, _ = search.argmin(x, spec.use_kernels)
     return idx
 
 
@@ -133,12 +235,12 @@ def _accumulate_stats(spec: SomSpec, w_flat, data, mask):
     running total: scattering +1.0 rows straight into a large f32 total
     drops increments once a node's count passes 2^24."""
     d_dim = data.shape[-1]
-    cb = kbmu.PackedCodebook(w_flat)
+    search = _searcher(spec, spec.distance_fn(), w_flat)
     scatter = kstats.scatter_stats if spec.use_kernels else kstats.scatter_stats_plain
     acc = torch.zeros((spec.xy, d_dim + 1), dtype=_F32, device=w_flat.device)
     for c in range(data.shape[0]):
         x, m = data[c], mask[c]
-        bmu = _bmu_chunk(spec, cb, x)
+        bmu = _bmu_chunk(spec, search, x)
         acc = acc + scatter(x, m, bmu, spec.xy)
     return acc[:, :d_dim], acc[:, d_dim]
 
@@ -178,7 +280,7 @@ def make_epoch_step(spec: SomSpec, num_epochs: int):
     """``step(w, data, mask, t) -> w'`` for one epoch; ``w`` is the
     (X, Y, D) f32 codebook, ``data``/``mask`` the (C, chunk, D)/(C, chunk)
     chunks, ``t`` the epoch index of a ``num_epochs`` schedule."""
-    spec.distance_fn()  # raises for activations the port does not serve
+    spec.distance_fn()  # validates the activation name
 
     def step(w, data, mask, t):
         w_flat = w.reshape(spec.xy, spec.input_len)
@@ -204,28 +306,31 @@ def make_train_fn(spec: SomSpec, num_epochs: int):
 
 
 def make_bmu_fn(spec: SomSpec):
-    """``bmu(w, data) -> (C, chunk) int32`` flat grid indices."""
-    spec.distance_fn()
+    """``bmu(w, data) -> (C, chunk) int32`` flat grid indices, by the
+    activation distance."""
+    dist = spec.distance_fn()
 
     def run(w, data):
-        cb = kbmu.PackedCodebook(w.reshape(spec.xy, spec.input_len))
-        return torch.stack([_bmu_chunk(spec, cb, data[c]) for c in range(data.shape[0])])
+        search = _searcher(spec, dist, w.reshape(spec.xy, spec.input_len))
+        return torch.stack([_bmu_chunk(spec, search, data[c]) for c in range(data.shape[0])])
 
     return run
 
 
 def make_quantization_stats_fn(spec: SomSpec):
     """``qstats(w, data, mask) -> (Σ‖x - W[bmu]‖, Σ mask)``, BMU by
-    euclidean distance."""
+    euclidean distance whatever the activation (the reference's
+    definition), searched under the spec's mode."""
+    eucl = DistanceFunction("euclidean")
 
     def run(w, data, mask):
         w_flat = w.reshape(spec.xy, spec.input_len)
-        cb = kbmu.PackedCodebook(w_flat)
+        search = _searcher(spec, eucl, w_flat)
         tot = torch.zeros((), dtype=_F32, device=w.device)
         n = torch.zeros((), dtype=_F32, device=w.device)
         for c in range(data.shape[0]):
             x, m = data[c], mask[c]
-            bmu = _bmu_chunk(spec, cb, x)
+            bmu = _bmu_chunk(spec, search, x)
             err = torch.linalg.vector_norm(x - w_flat[bmu.long()], dim=1)
             tot = tot + torch.sum(err * m)
             n = n + torch.sum(m)
@@ -237,7 +342,10 @@ def make_quantization_stats_fn(spec: SomSpec):
 def make_topographic_stats_fn(spec: SomSpec):
     """``tstats(w, data, mask) -> (Σ errors, Σ mask)``: top-2 BMUs by
     euclidean distance (K2), an error where they are not adjacent on the
-    rectangular grid (``|Δx| > 1 or |Δy| > 1``)."""
+    rectangular grid (``|Δx| > 1 or |Δy| > 1``). The search runs in mode
+    ``'packed'`` whatever the spec's mode, as the JAX core's
+    ``te_fused_mode`` maps ``'highest'`` (exact by other means) onto the
+    exact packed split."""
     if spec.topology == "hexagonal" and spec.x != spec.y:
         raise ValueError(
             "topographic_error on hexagonal topology requires a square map "
@@ -248,15 +356,14 @@ def make_topographic_stats_fn(spec: SomSpec):
             "hexagonal topographic_error is not ported yet (ROADMAP Queue 1 "
             "item 6)"
         )
-    top2 = kbmu.bmu_top2 if spec.use_kernels else kbmu.bmu_top2_plain
 
     def run(w, data, mask):
-        cb = kbmu.PackedCodebook(w.reshape(spec.xy, spec.input_len))
+        cb = kbmu.PackedCodebook(w.reshape(spec.xy, spec.input_len), "packed")
         errs = torch.zeros((), dtype=_F32, device=w.device)
         n = torch.zeros((), dtype=_F32, device=w.device)
         for c in range(data.shape[0]):
             x, m = data[c], mask[c]
-            i1, _, i2, _ = top2(*cb.operands(x))
+            i1, _, i2, _ = cb.top2(x, spec.use_kernels)
             bad = (torch.abs(i1 // spec.y - i2 // spec.y) > 1) | (
                 torch.abs(i1 % spec.y - i2 % spec.y) > 1
             )

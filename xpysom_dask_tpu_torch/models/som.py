@@ -8,7 +8,9 @@ The codebook lives on the host as a numpy array (``get_weights()``),
 initialized from numpy's ``RandomState(random_seed)`` exactly as the JAX
 package does, so the same seed gives the same initial codebook.
 
-This slice serves the euclidean activation on rectangular grids. The
+This port serves every activation of the JAX package (euclidean, cosine,
+manhattan, norm_p with any p, and the ``_no_opt`` names) on rectangular
+grids, in the precision modes ``'packed'`` and ``'highest'``. The
 methods and options still to be ported raise ``NotImplementedError``
 naming the ROADMAP item that ports them.
 """
@@ -92,8 +94,18 @@ class XPySom:
             ``_no_opt`` testing pattern). On the CPU the plain versions
             always run.
 
-        bmu_precision : validated like the JAX package; only 'packed' is
-            served.
+        bmu_precision : validated and resolved like the JAX package
+            (default 'highest' for norm_p, else 'packed'); 'packed' and
+            'highest' are served, the other modes raise
+            NotImplementedError.
+
+        activation_distance : 'euclidean', 'cosine', 'manhattan',
+            'norm_p' (``activation_distance_kwargs={'p': ...}``, default
+            p=2) or a ``_no_opt`` name. The BMU search routes as the JAX
+            package's does: the GEMM-form kernels for euclidean, cosine and
+            even p; the elementwise kernels for manhattan, odd p and
+            non-integer p; a plain distance matrix for the ``_no_opt``
+            names and p <= 0.
         """
         if sigma >= x or sigma >= y:
             warn("Warning: sigma is too high for the dimension of the map.")
@@ -139,17 +151,25 @@ class XPySom:
 
         self._activation_distance_name = activation_distance
         self._activation_distance_kwargs = dict(activation_distance_kwargs)
-        DistanceFunction(activation_distance, self._activation_distance_kwargs)
+        dist_obj = DistanceFunction(activation_distance, self._activation_distance_kwargs)
 
-        # validation lives at the one boundary, SomSpec.__post_init__
-        cfg = SomSpec(1, 1, 1, 1.0, 1.0, 0.5, 0.01, bmu_precision=bmu_precision,
-                      use_kernels=use_kernels)
+        # validation and resolution live at the one boundary,
+        # SomSpec.__post_init__ (the norm_p rules need the distance)
+        cfg = SomSpec(1, 1, 1, 1.0, 1.0, 0.5, 0.01, distance=activation_distance,
+                      bmu_precision=bmu_precision, use_kernels=use_kernels)
         self._bmu_precision = cfg.bmu_precision
         self._use_kernels = cfg.use_kernels
 
         self._device = torch.device(device) if device is not None else _default_device()
+        # The kernels' chunk default (16384) is only safe where the search
+        # never builds the (chunk, XY) distance matrix: ask the dispatch
+        # gate, as the JAX model does
+        self._n_parallel_explicit = n_parallel != 0
         if n_parallel == 0:
-            fused = self._use_kernels and self._device.type == "cuda"
+            fused = (
+                self._device.type == "cuda"
+                and core._kernel_bmu_kind(dist_obj, self._use_kernels) is not None
+            )
             n_parallel = default_n_parallel(x * y, self._device.type, fused=fused)
         self._n_parallel = int(n_parallel)
 
@@ -186,11 +206,22 @@ class XPySom:
             use_kernels=self._use_kernels,
         )
 
-    def _chunked(self, data2d: np.ndarray):
+    @property
+    def _matrix_chunk(self) -> int:
+        """Chunk size for paths that build the (chunk, XY) distance matrix
+        (the plain versions of the searches): the kernels' default would
+        allocate chunk·XY·4 bytes, so an auto-sized SOM falls back to the
+        element-budgeted default here. An explicit ``n_parallel`` is
+        honored everywhere (it is the reference's memory bound)."""
+        if self._n_parallel_explicit:
+            return self._n_parallel
+        return min(self._n_parallel, default_n_parallel(self._x * self._y, self._device.type))
+
+    def _chunked(self, data2d: np.ndarray, chunk: int = None):
         """Pad + chunk host data and place it on the device. One chunk
         rule for training and inference: eager PyTorch has no compiled
-        shapes to bucket."""
-        chunk = training_chunk(data2d.shape[0], self._n_parallel)
+        shapes to bucket. ``chunk`` overrides the budget ``n_parallel``."""
+        chunk = training_chunk(data2d.shape[0], chunk or self._n_parallel)
         chunks, mask, n = chunk_data(data2d, chunk)
         return (
             torch.from_numpy(chunks).to(self._device),
@@ -316,7 +347,9 @@ class XPySom:
         if data2d.shape[0] == 0:
             warn("topographic_error: received no rows.")
             return float("nan")
-        chunks, mask, _ = self._chunked(data2d)
+        # K2 keeps the distance matrix on chip; its plain version builds it
+        k2 = self._use_kernels and self._device.type == "cuda"
+        chunks, mask, _ = self._chunked(data2d, None if k2 else self._matrix_chunk)
         errs, n = core.make_topographic_stats_fn(self._spec)(
             self._device_weights(), chunks, mask
         )
@@ -398,5 +431,6 @@ class XPySom:
             f"topology={self.topology!r}, "
             f"neighborhood={self.neighborhood_func_name!r}, "
             f"distance={self._activation_distance_name!r}, "
+            f"bmu_precision={self._bmu_precision!r}, "
             f"device={str(self._device)!r})"
         )

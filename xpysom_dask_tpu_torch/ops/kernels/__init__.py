@@ -2,13 +2,19 @@
 ``xpysom_dask_tpu/ops/pallas``), each behind a wrapper that counts its
 launches, plus the wrappers' plain PyTorch versions."""
 
-from .bmu import PackedCodebook, bmu_argmin, bmu_top2
+from .bmu import PackedCodebook, bmu_argmin, bmu_highest, bmu_top2
+from .elementwise import ElementwiseCodebook, bmu_manhattan, bmu_norm_p_frac, bmu_norm_p_odd
 from .stats import scatter_stats
 
 __all__ = [
     "bmu_argmin",
     "bmu_top2",
+    "bmu_highest",
+    "bmu_manhattan",
+    "bmu_norm_p_odd",
+    "bmu_norm_p_frac",
     "PackedCodebook",
+    "ElementwiseCodebook",
     "scatter_stats",
     "KERNELS",
     "launch_counts",
@@ -20,6 +26,10 @@ KERNELS = {
     "bmu_argmin": bmu_argmin,
     "bmu_top2": bmu_top2,
     "scatter_stats": scatter_stats,
+    "bmu_highest": bmu_highest,
+    "bmu_manhattan": bmu_manhattan,
+    "bmu_norm_p_odd": bmu_norm_p_odd,
+    "bmu_norm_p_frac": bmu_norm_p_frac,
 }
 
 

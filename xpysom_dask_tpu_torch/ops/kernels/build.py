@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels (plain C interface + ctypes).
 
 The sources in ``xpysom_dask_tpu_torch/csrc/`` are compiled at first use
-by ``nvcc`` for ``sm_90a`` into one shared library under
-``build/kernels/`` at the repository root. The file name carries a hash
-of the sources and flags, so an edited source is rebuilt and a stale
-library is never loaded. Nothing here runs at import time; the CPU paths
-never call :func:`load_library`.
+by ``nvcc`` for ``sm_90a`` — one ``nvcc -c`` per source, all started
+together — and linked into one shared library under ``build/kernels/`` at
+the repository root. The file name carries a hash of the sources, headers
+and flags, so an edited source is rebuilt and a stale library is never
+loaded. Nothing here runs at import time; the CPU paths never call
+:func:`load_library`.
 """
 
 from __future__ import annotations
@@ -23,20 +24,24 @@ __all__ = ["load_library", "build_dir", "SOURCES", "last_build_seconds"]
 
 _PKG = Path(__file__).resolve().parents[2]
 _CSRC = _PKG / "csrc"
-SOURCES = ("bmu.cu", "stats.cu")
-_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+SOURCES = ("bmu.cu", "stats.cu", "highest.cu", "elementwise.cu")
+HEADERS = ("tile_argmin.cuh",)
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points and their argument types (every pointer and the stream
 # as c_void_p: ctypes would otherwise pass them as 32-bit ints)
 _SIGNATURES = {
     "xps_bmu_argmin": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
     "xps_bmu_top2": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
     "xps_scatter_stats": (_P, _P, _P, _P, _I, _I, _P, _P),
+    "xps_bmu_highest": (_P, _P, _P, _I, _I, _I, _P, _P, _P),
+    "xps_bmu_manhattan": (_P, _P, _I, _I, _I, _P, _P, _P),
+    "xps_bmu_lp_odd": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "xps_bmu_lp_frac": (_P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -66,25 +71,46 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
+def _run(cmds) -> None:
+    """Run the commands side by side; raise with the first failure's
+    output. Every process is waited for (or killed) before returning."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    try:
+        outs = [p.communicate()[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for cmd, p, text in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{text}")
+
+
 def _build(out: Path) -> None:
     global last_build_seconds
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *(str(_CSRC / s) for s in SOURCES)]
+    stem = out.with_suffix(f".{os.getpid()}")
+    objs = [Path(f"{stem}.{Path(s).stem}.o") for s in SOURCES]
+    tmp = Path(f"{stem}.tmp")
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    try:
+        _run([[nvcc, *_FLAGS, "-c", "-o", str(o), str(_CSRC / s)] for s, o in zip(SOURCES, objs)])
+        _run([[nvcc, *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, out)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     last_build_seconds = time.perf_counter() - t0
 
 
