@@ -17,18 +17,40 @@ Phases (each prints lines; any failure raises and exits non-zero):
      against its plain version: the flagship chunk,
      K4 at the even-p expansion's width (p = 4, D' = 320), a ragged shape
      and a tie and zero-distance fixture, with CUDA-event timings;
-  5. the main path: ``XPySom(128, 128, 64)`` on 2^19 samples, QE before,
+  5. the other precision modes' kernels: K3 (split3) and K1/K2 under the
+     bf16 and split2 operands against their plain versions (flagship,
+     ragged, tie fixture), and K8 (the L1 matrix) bitwise against its
+     plain version (flagship, ragged), with CUDA-event timings;
+  6. the main path: ``XPySom(128, 128, 64)`` on 2^19 samples, QE before,
      three epochs of a 10-epoch schedule, ``winner``, QE and TE, with the
      kernels' launch counters read around it;
-  6. determinism (a second run gives the same codebook bits) and one
+  7. determinism (a second run gives the same codebook bits) and one
      epoch through the plain versions against the kernel path;
-  7. the manhattan main path at the same width (QE, 2 of 10 epochs,
+  8. the rectangular packed path, the ``bmu_precision='split3'`` path and
+     the hexagonal path at the same width (QE, 2 of 10 epochs,
+     winner/QE/TE, counters; split3's winners against the plain versions';
+     the other two paths' QE and codebooks against the rectangular one's)
+     and their epoch times on device-resident chunks;
+  9. the manhattan main path at the same width (QE, 2 of 10 epochs,
      winner/QE/TE, counters, winners against the plain versions) and its
      epoch time on device-resident chunks;
-  8. shorter runs (2^16 samples, one epoch) under cosine, norm_p with
-     p = 3, 1.5 and 4, and euclidean with ``bmu_precision='highest'``:
+ 10. shorter runs (2^16 samples, one epoch) under cosine, norm_p with
+     p = 3, 1.5 and 4, euclidean with ``bmu_precision='highest'``,
+     ``'bf16'``, ``'split2'``, and ``'margin'`` under euclidean and cosine:
      QE falls, the route's kernel launches, and the winners agree with
-     the plain versions'.
+     the plain versions' (margin's with the float64 argmin);
+ 11. ``margin`` on one flagship chunk of clustered data whose suspects fit
+     the rescue buffer: the compacted re-rank runs, its winners equal the
+     plain versions' and the float64 argmin up to the packed floor, and
+     its parts and the host read of the suspect count are timed;
+ 12. ``activate`` under manhattan on 8192 samples x 16384 nodes: K8
+     launches and the matrix equals the plain versions' bit for bit; K8
+     timed at activate's own chunk.
+Each kernel's record carries its launches on the path that runs it, its
+error against the plain version, its time, the plain version's, the time
+of one PyTorch library call that computes the same function where there
+is one, and its bound: the least time the card could take, from this
+run's shapes and the H100's published peaks.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
@@ -59,6 +81,8 @@ F32_DOT = 2.0**-24
 # margin (tests/test_pallas.py, relative float64 runner-up margin) and
 # value tolerance
 FRAC_MARGIN, FRAC_RTOL = 1e-4, 1e-5
+# the bf16 pass's pairwise error envelope (mode 'margin''s gate, 6 u)
+MARGIN_GATE = 6.0 * 2.0**-8
 
 REPLACES = {
     "bmu_argmin": ("xpysom_dask_tpu_torch/csrc/bmu.cu",
@@ -75,7 +99,31 @@ REPLACES = {
                        "xpysom_dask_tpu/ops/pallas/bmu.py:1111"),
     "bmu_norm_p_frac": ("xpysom_dask_tpu_torch/csrc/elementwise.cu",
                         "xpysom_dask_tpu/ops/pallas/bmu.py:1175"),
+    "bmu_split3": ("xpysom_dask_tpu_torch/csrc/bmu.cu",
+                   "xpysom_dask_tpu/ops/pallas/bmu.py:212"),
+    "manhattan_distance": ("xpysom_dask_tpu_torch/csrc/manhattan.cu",
+                           "xpysom_dask_tpu/ops/pallas/manhattan.py:32"),
 }
+
+# Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet;
+# the special-function rate from the Hopper white paper: 16 units per SM,
+# 132 SMs, 1.98 GHz boost clock). A bound is the larger of the operations'
+# time at these rates and the bytes' time (each input read once, each
+# output written once) at the memory rate.
+BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12  # an FMA counts as two
+FP32_INSTR = FP32_FLOPS / 2  # FP32 instructions per second
+SFU_RATE = 132 * 16 * 1.98e9
+HBM_BYTES = 3.35e12
+# bf16 unit roundoff: the bf16 pass's error envelope is ~2.1 u per term
+F32_U = 2.0**-24
+
+
+def bound(op_seconds, nbytes):
+    """``(bound_ms, bound_by)``: the larger of the operations' time and the
+    bytes' time at the memory rate."""
+    t_bytes = nbytes / HBM_BYTES
+    return max(op_seconds, t_bytes) * 1e3, ("operations" if op_seconds >= t_bytes else "bytes")
 
 
 def require(cond, msg):
@@ -252,19 +300,40 @@ def phase_kernels(torch, card):
     compare_stats(torch, ks, "K9 ragged", xr9, (rng.rand(1000) > 0.2).astype(np.float32),
                   rng.randint(91, size=1000), 91)
 
+    # the library yardstick of K9: index_add_ of the masked [x | 1] rows
+    xs9, ms9, is9, xy9 = st
+    rows9 = torch.cat([xs9 * ms9[:, None], ms9[:, None]], dim=1)
+    idx9 = is9.long()
     timings = {
         "bmu_argmin": (cuda_ms(torch, lambda: kb.bmu_argmin(*ops)),
-                       cuda_ms(torch, lambda: kb.bmu_argmin_plain(*ops))),
+                       cuda_ms(torch, lambda: kb.bmu_argmin_plain(*ops)), None),
         "bmu_top2": (cuda_ms(torch, lambda: kb.bmu_top2(*ops)),
-                     cuda_ms(torch, lambda: kb.bmu_top2_plain(*ops))),
-        "scatter_stats": (cuda_ms(torch, lambda: ks.scatter_stats(*st)),
-                          cuda_ms(torch, lambda: ks.scatter_stats_plain(*st))),
+                     cuda_ms(torch, lambda: kb.bmu_top2_plain(*ops)), None),
+        "scatter_stats": (
+            cuda_ms(torch, lambda: ks.scatter_stats(*st)),
+            cuda_ms(torch, lambda: ks.scatter_stats_plain(*st)),
+            cuda_ms(torch, lambda: torch.zeros((xy9, rows9.shape[1]), device="cuda")
+                    .index_add_(0, idx9, rows9)),
+        ),
     }
-    for name, (ms, plain) in timings.items():
-        print(f"time {name} at the flagship chunk: kernel {ms:.4f} ms, plain {plain:.4f} ms "
-              f"(CUDA events; {card})")
+    for name, (ms, plain, lib) in timings.items():
+        print(f"time {name} at the flagship chunk: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"library {lib if lib is None else f'{lib:.4f}'} ms (CUDA events; {card})")
+    # bounds at the flagship chunk: the augmented GEMM's 2·N·XY·K operations
+    # on the tensor cores; K9 reads x, mask and idx and writes the (XY, D+1)
+    # statistics
+    a, w_aug, xy = ops
+    n, k = a.shape
+    gemm = 2.0 * n * xy * k / BF16_FLOPS
+    gemm_bytes = 2 * (n * k + k * w_aug.shape[1])
+    bounds = {
+        "bmu_argmin": bound(gemm, gemm_bytes + 8 * n),
+        "bmu_top2": bound(gemm, gemm_bytes + 16 * n),
+        "scatter_stats": bound(2.0 * xs9.numel() / FP32_INSTR,
+                               4 * (xs9.numel() + 2 * len(ms9) + xy9 * rows9.shape[1])),
+    }
     errs = {"bmu_argmin": err1, "bmu_top2": err2, "scatter_stats": 0.0}
-    return timings, errs
+    return timings, errs, bounds
 
 
 def phase_main_path(torch):
@@ -509,24 +578,199 @@ def phase_tile_kernels(torch, card):
     for p in (0.5, 3.3, 4.5):
         _compare_frac(torch, f"K7 p={p} ragged", xr, wr, p)
 
-    timings = {}
+    from xpysom_dask_tpu_torch.ops.distances import fp32_matmul
+
+    def addmm_argmin(x_, w_, wsq_):
+        with fp32_matmul():
+            return torch.addmm(wsq_, x_, w_.T, alpha=-2).argmin(1)
+
+    timings, bounds = {}, {}
     for label, key in (("K4 flagship", "bmu_highest"), ("K4 p=4 expansion D'=320", None)):
         o = ops[key or "bmu_highest D'=320"]
         t = (cuda_ms(torch, lambda: kb.bmu_highest(*o)),
-             cuda_ms(torch, lambda: kb.bmu_highest_plain(*o)))
+             cuda_ms(torch, lambda: kb.bmu_highest_plain(*o)),
+             cuda_ms(torch, lambda: addmm_argmin(*o)))
         if key:
             timings[key] = t
-        print(f"time {label}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms (CUDA events; {card})")
+            n, d = o[0].shape
+            xy = o[1].shape[0]
+            bounds[key] = bound(2.0 * n * xy * d / FP32_FLOPS, 4 * (n * d + xy * d + xy) + 8 * n)
+        print(f"time {label}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, library (addmm + "
+              f"argmin) {t[2]:.4f} ms (CUDA events; {card})")
     for _, label, *_ in cases:
         key, (xt_, wt_), args, kern, plain = ops[label]
+        p = args[0] if args else 1
         t = (cuda_ms(torch, lambda: kern(xt_, wt_, *args)),
-             cuda_ms(torch, lambda: plain(xt_, wt_, *args), reps=3, warmup=1))
+             cuda_ms(torch, lambda: plain(xt_, wt_, *args), reps=3, warmup=1),
+             cuda_ms(torch, lambda: torch.cdist(xt_, wt_, p=p).argmin(1), reps=3, warmup=1))
         # the record keeps K7's sqrt branch (p=1.5); the exp/log branch
         # (p=2.7) is printed
-        timings.setdefault(key, t)
-        print(f"time {label} flagship: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms "
+        if key not in timings:
+            timings[key] = t
+            bounds[key] = bound(_elementwise_seconds(p, xt_.shape[0], wt_.shape[0],
+                                                     xt_.shape[1]),
+                                4 * (xt_.numel() + wt_.numel()) + 8 * xt_.shape[0])
+        print(f"time {label} flagship: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, library "
+              f"(cdist p={p} + argmin) {t[2]:.4f} ms (CUDA events; {card})")
+    return timings, errs, bounds
+
+
+def _elementwise_seconds(p, n, xy, d):
+    """Least issue time of the elementwise searches' n·xy·d terms: per
+    term one subtract (|.| is an operand modifier) and one add, p − 1
+    multiplies for odd p, ⌊p⌋ multiplies and one special-function result
+    (sqrt) or two (exp, log) for fractional p; the FP32 and the
+    special-function pipes run side by side, so the slower one bounds."""
+    terms = float(n) * xy * d
+    if float(p).is_integer():
+        return terms * (1 + int(p)) / FP32_INSTR
+    m = int(p)
+    sfu = 1 if p - m == 0.5 else 2
+    return max(terms * (2 + m) / FP32_INSTR, terms * sfu / SFU_RATE)
+
+
+def _check_operand_ties(name, rows, a, w_aug, got, want):
+    """Indices that differ between two f32 sums of the same bf16 operands
+    must tie to within the f32 accumulation bound: the float64 values of
+    A·W_aug at the two columns within 2·K·2^-24·Σ_k |A_k||W_k|."""
+    k = a.shape[1]
+    bad = 0
+    for r in rows:
+        cols = [int(got[r]), int(want[r])]
+        ar = a[r].double().cpu().numpy()
+        wc = w_aug[:, cols].double().cpu().numpy()
+        d = ar @ wc
+        tol = 2 * k * F32_U * (np.abs(ar) @ np.abs(wc)).max()
+        bad += abs(d[0] - d[1]) > tol
+    require(bad == 0, f"{name}: {bad} of {len(rows)} index differences are not f32 ties")
+
+
+def compare_mode(torch, kb, name, x, w, mode):
+    """A precision mode's kernel against its plain version on (x, w),
+    packed as the main path packs them: K3 under 'split3', K1 (and K2
+    under 'bf16') under 'bf16' and 'split2'. K3's differing winners must
+    be float64 near-ties of the data within the packed floor; K1/K2's,
+    ties of the bf16 operands within the f32 accumulation bound. Values
+    agree to VAL_RTOL of the row's term magnitudes. Returns the max value
+    error and the operands."""
+    xt = torch.from_numpy(x).cuda()
+    cb = kb.PackedCodebook(torch.from_numpy(w).cuda(), mode)
+    ops = cb.operands(xt)
+    center = cb.center.cpu().numpy()
+    xc = (x - center).astype(np.float64)
+    wc = (w - center).astype(np.float64)
+    mag = np.abs(xc) @ np.abs(2 * wc).max(0) + (wc * wc).sum(1).max()
+    tol = VAL_RTOL * (1.0 + mag)
+    pairs = [(kb.bmu_split3, kb.bmu_split3_plain)] if mode == "split3" else \
+        [(kb.bmu_argmin, kb.bmu_argmin_plain)]
+    if mode == "bf16":
+        pairs.append((kb.bmu_top2, kb.bmu_top2_plain))
+    err = 0.0
+    for kern, plain in pairs:
+        got, want = kern(*ops), plain(*ops)
+        torch.cuda.synchronize()
+        got = [u.cpu().numpy() for u in got]
+        want = [u.cpu().numpy() for u in want]
+        i_k, v_k, i_p, v_p = got[0], got[1], want[0], want[1]
+        require(i_k.shape == (x.shape[0],) and np.isfinite(v_k).all(),
+                f"{name}: {kern.__name__} output malformed")
+        require(((i_k >= 0) & (i_k < w.shape[0])).all(), f"{name}: index out of range")
+        diff = np.nonzero(i_k != i_p)[0]
+        if mode == "split3":
+            _check_near_ties(f"{name} {kern.__name__}", diff, xc, wc, i_k, i_p)
+        else:
+            _check_operand_ties(f"{name} {kern.__name__}", diff, ops[0], ops[1], i_k, i_p)
+        same = i_k == i_p
+        if len(got) == 4:  # K2: the runner-up too
+            diff2 = np.nonzero(got[2] != want[2])[0]
+            _check_operand_ties(f"{name} K2 second", diff2, ops[0], ops[1], got[2], want[2])
+            same2 = same & (got[2] == want[2])
+            require((np.abs(got[3] - want[3]) <= tol)[same2].all(), f"{name}: K2 values")
+        require((np.abs(v_k - v_p) <= tol)[same].all(), f"{name}: {kern.__name__} values")
+        e = float(np.abs(v_k - v_p)[same].max()) if same.any() else 0.0
+        err = max(err, e)
+        print(f"{name}: {kern.__name__} {len(diff)} tie index differences of {len(i_k)}, "
+              f"max|dv| {e:.3g}")
+    return err, ops
+
+
+def phase_mode_kernels(torch, card):
+    """K3 and K1/K2 under the bf16 and split2 operands against their plain
+    versions, and K8 bitwise against its plain version; returns K3's and
+    K8's timings, errors and bounds."""
+    from xpysom_dask_tpu_torch.ops.kernels import bmu as kb
+    from xpysom_dask_tpu_torch.ops.kernels import manhattan as km
+
+    rng = np.random.RandomState(5)
+    f = FLAGSHIP
+    x = rng.rand(f["chunk"], f["d"]).astype(np.float32)
+    w = rng.rand(f["x"] * f["y"], f["d"]).astype(np.float32)
+    xr = rng.rand(1000, 5).astype(np.float32)
+    wr = (rng.rand(7 * 13, 5) * 2 - 1).astype(np.float32)
+    xt = np.zeros((4, 3), np.float32)
+    xt[1] = 5
+    wt = np.zeros((2100, 3), np.float32)
+    wt[7] = wt[1500] = 5
+    timings, errs, bounds, ops = {}, {}, {}, {}
+    for mode in ("split3", "bf16", "split2"):
+        e, ops[mode] = compare_mode(torch, kb, f"{mode} flagship", x, w, mode)
+        e2, _ = compare_mode(torch, kb, f"{mode} ragged 1000x91 D=5", xr, wr, mode)
+        errs[mode] = max(e, e2)
+        cb = kb.PackedCodebook(torch.from_numpy(wt).cuda(), mode)
+        i, _ = cb.argmin(torch.from_numpy(xt).cuda())
+        require(i.cpu().tolist() == [0, 7, 0, 0], f"{mode} tie fixture: {i.cpu().tolist()}")
+        print(f"{mode}: tie fixture (duplicates at 7 and 1500) keeps the first index")
+
+    o3 = ops["split3"]
+    timings["bmu_split3"] = (cuda_ms(torch, lambda: kb.bmu_split3(*o3)),
+                             cuda_ms(torch, lambda: kb.bmu_split3_plain(*o3)), None)
+    n, k = o3[0].shape
+    xy = o3[5]
+    bounds["bmu_split3"] = bound(3 * 2.0 * n * xy * k / BF16_FLOPS,
+                                 2 * 2 * (n * k + k * o3[2].shape[1]) + 4 * xy + 8 * n)
+    errs["bmu_split3"] = errs.pop("split3")
+    print(f"time bmu_split3 (K3) at the flagship chunk: kernel {timings['bmu_split3'][0]:.4f} "
+          f"ms, plain {timings['bmu_split3'][1]:.4f} ms (CUDA events; {card})")
+    for mode in ("bf16", "split2"):
+        a, w_aug, xy = ops[mode]
+        t1 = (cuda_ms(torch, lambda: kb.bmu_argmin(a, w_aug, xy)),
+              cuda_ms(torch, lambda: kb.bmu_argmin_plain(a, w_aug, xy)))
+        b = bound(2.0 * a.shape[0] * xy * a.shape[1] / BF16_FLOPS, 0)[0]
+        print(f"time bmu_argmin (K1) under {mode} operands (K={a.shape[1]}) at the flagship "
+              f"chunk: kernel {t1[0]:.4f} ms, plain {t1[1]:.4f} ms, bound {b:.4f} ms "
               f"(CUDA events; {card})")
-    return timings, errs
+        if mode == "bf16":
+            t2 = (cuda_ms(torch, lambda: kb.bmu_top2(a, w_aug, xy)),
+                  cuda_ms(torch, lambda: kb.bmu_top2_plain(a, w_aug, xy)))
+            print(f"time bmu_top2 (K2) under bf16 operands at the flagship chunk: kernel "
+                  f"{t2[0]:.4f} ms, plain {t2[1]:.4f} ms (CUDA events; {card})")
+
+    # K8: the L1 matrix, bit for bit
+    for label, (xx, ww) in (("flagship", (x, w)), ("ragged 1000x91 D=5", (xr, wr))):
+        xg, wg = torch.from_numpy(xx).cuda(), torch.from_numpy(ww).cuda()
+        got = km.manhattan_distance(xg, wg)
+        want = km.manhattan_distance_plain(xg, wg)
+        torch.cuda.synchronize()
+        require(got.shape == (len(xx), len(ww)), f"K8 {label}: shape {tuple(got.shape)}")
+        require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                f"K8 {label}: {int((got != want).sum())} entries differ in bits")
+        print(f"K8 {label}: bitwise equal to the plain version ({tuple(got.shape)})")
+        del got, want
+    xg, wg = torch.from_numpy(x).cuda(), torch.from_numpy(w).cuda()
+    timings["manhattan_distance"] = (
+        cuda_ms(torch, lambda: km.manhattan_distance(xg, wg)),
+        cuda_ms(torch, lambda: km.manhattan_distance_plain(xg, wg), reps=3, warmup=1),
+        cuda_ms(torch, lambda: torch.cdist(xg, wg, p=1)),
+    )
+    n, d = xg.shape
+    xy = wg.shape[0]
+    bounds["manhattan_distance"] = bound(_elementwise_seconds(1, n, xy, d),
+                                         4 * (n * d + xy * d + n * xy))
+    errs["manhattan_distance"] = 0.0
+    t = timings["manhattan_distance"]
+    print(f"time manhattan_distance (K8) at the flagship chunk: kernel {t[0]:.4f} ms, plain "
+          f"{t[1]:.4f} ms, library (cdist p=1) {t[2]:.4f} ms (CUDA events; {card})")
+    return timings, {k: errs[k] for k in ("bmu_split3", "manhattan_distance")}, bounds
 
 
 def _winner_flips(name, som, ref, data, d64, band):
@@ -591,7 +835,16 @@ def phase_manhattan_path(torch):
             "manhattan winners differ from the plain versions'")
     print("manhattan path: winners equal the plain versions' on 4096 rows")
 
-    # epoch time on device-resident chunks, between two synchronizations
+    _epoch_times(torch, "manhattan", som, data)
+    return counts
+
+
+def _epoch_times(torch, label, som, data):
+    """Three epochs (3-5 of 10, after one unmeasured) of ``som``'s spec on
+    device-resident chunks, each between two synchronizations; prints
+    them and returns the median in seconds."""
+    from xpysom_dask_tpu_torch import core
+
     chunks, mask, _ = som._chunked(data)
     step = core.make_epoch_step(som._spec, 10)
     ww = step(som._device_weights(), chunks, mask, 2)
@@ -603,10 +856,76 @@ def phase_manhattan_path(torch):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     med = sorted(times)[1]
-    print(f"manhattan epoch on device-resident chunks (host clock, synchronized): "
+    print(f"{label} epoch on device-resident chunks (host clock, synchronized): "
           f"{[round(t * 1e3, 3) for t in times]} ms; median {med * 1e3:.3f} ms = "
-          f"{f['n'] / med / 1e6:.3f} M samples/s")
-    return counts
+          f"{len(data) / med / 1e6:.3f} M samples/s")
+    return med
+
+
+def phase_split3_and_hex_paths(torch, data):
+    """The split3 path and the hexagonal path at full width on the
+    flagship data: QE, 2 of 10 epochs, winner/QE/TE, the launch counters
+    read around each path; split3's winners against the plain versions'.
+    Then the epoch times of both beside the rectangular euclidean epoch.
+    Returns each path's counts."""
+    from xpysom_dask_tpu_torch import XPySom
+    from xpysom_dask_tpu_torch.ops import kernels
+
+    f = FLAGSHIP
+    n_chunks = f["n"] // f["chunk"]
+    base = dict(sigma=64, sigmaN=1, learning_rate=0.5, learning_rateN=0.01, random_seed=0)
+    paths = {"rectangular": {}, "split3": dict(bmu_precision="split3"),
+             "hexagonal": dict(topology="hexagonal")}
+    soms, out = {}, {}
+    for name, extra in paths.items():
+        kw = dict(base, **extra)
+        som = XPySom(f["x"], f["y"], f["d"], **kw)
+        require(som._n_parallel == f["chunk"], f"{name}: chunk {som._n_parallel}")
+        kernels.reset_launch_counts()
+        qe0 = som.quantization_error(data)
+        for e in range(2):
+            t0 = time.perf_counter()
+            som.train(data, 10, iter_beg=e, iter_end=e + 1)
+            print(f"{name} path: epoch {e} of 10 in {time.perf_counter() - t0:.4f} s "
+                  "(host chunking and upload included)")
+        win = som.predict(data[:4096])
+        qe = som.quantization_error(data)
+        te = som.topographic_error(data)
+        counts = kernels.launch_counts()
+        print(f"{name} path: QE {qe0!r} -> {qe!r}, TE {te!r}; launch counts {counts}")
+        w = som.get_weights()
+        require(w.shape == (f["x"], f["y"], f["d"]) and np.isfinite(w).all(),
+                f"{name}: codebook malformed")
+        require(np.isfinite(qe) and qe < qe0, f"{name}: QE did not fall: {qe0} -> {qe}")
+        require(np.isfinite(te) and 0.0 <= te <= 1.0, f"{name}: TE {te} outside [0, 1]")
+        require(counts["scatter_stats"] >= 2 * n_chunks, f"{name}: K9 launched too few times")
+        require(counts["bmu_top2"] >= 1, f"{name}: K2 (TE) never launched")
+        if name == "split3":
+            # 2 epochs, 2 QE and the winner probe, all through K3
+            require(counts["bmu_split3"] >= 4 * n_chunks + 1, "K3 launched too few times")
+            ref = XPySom.from_numpy(w, **kw, use_kernels=False)
+            flat_p = ref.predict(data[:4096])
+            w_flat = w.reshape(-1, f["d"]).astype(np.float64)
+            center = w.reshape(-1, f["d"]).mean(0, dtype=np.float32).astype(np.float64)
+            flips = np.nonzero(win != flat_p)[0]
+            _check_near_ties("split3 winner", flips, data[:4096].astype(np.float64) - center,
+                             w_flat - center, win, flat_p)
+            print(f"split3 path: winners agree with the plain versions on "
+                  f"{4096 - len(flips)} of 4096; the {len(flips)} others are near-ties")
+        else:
+            require(counts["bmu_argmin"] >= 4 * n_chunks, f"{name}: K1 launched too few times")
+        soms[name] = (som, qe)
+        out[name] = counts
+    som_r, qe_r = soms["rectangular"]
+    for name in ("split3", "hexagonal"):
+        som, qe = soms[name]
+        dw = np.abs(som.get_weights() - som_r.get_weights())
+        print(f"{name} path against the rectangular packed path after the same 2 epochs: "
+              f"QE {qe!r} vs {qe_r!r} (difference {qe - qe_r:.3e}), max|dw| {dw.max():.3e}, "
+              f"mean|dw| {dw.mean():.3e}")
+    for turn in ("rectangular", "split3", "hexagonal", "rectangular"):
+        _epoch_times(torch, turn, soms[turn][0], data)
+    return out
 
 
 def phase_short_runs(torch):
@@ -653,6 +972,21 @@ def phase_short_runs(torch):
             return 2 * 2 * d * (p + 1) * F32_DOT * ((xc + wc) ** p).sum(1).max()
         return band
 
+    def bf16_band(som):
+        # both sides search the same bf16 problem: a flip between them is
+        # a float64 gap within twice its error envelope (the margin gate)
+        def band(x, w2, _):
+            xc, wc = centered(x, w2, som)
+            return MARGIN_GATE * (wc @ (2 * xc)).max()
+        return band
+
+    def packed_band(som):
+        # margin's re-rank is packed K1: its floor on the centered operands
+        def band(x, w2, _):
+            xc, wc = centered(x, w2, som)
+            return NEAR_TIE * (wc @ (2 * xc)).max()
+        return band
+
     configs = (
         ("cosine", dict(activation_distance="cosine"), "bmu_argmin", cos64,
          lambda som: cos_band),
@@ -665,6 +999,14 @@ def phase_short_runs(torch):
          "bmu_highest", lp(4), lambda som: expansion_band(som, 4)),
         ("euclidean highest", dict(bmu_precision="highest"), "bmu_highest",
          lambda x, w2: ((x - w2) ** 2).sum(1), highest_band),
+        ("euclidean bf16", dict(bmu_precision="bf16"), "bmu_argmin",
+         lambda x, w2: ((x - w2) ** 2).sum(1), bf16_band),
+        ("euclidean split2", dict(bmu_precision="split2"), "bmu_argmin",
+         lambda x, w2: ((x - w2) ** 2).sum(1), bf16_band),
+        ("euclidean margin", dict(bmu_precision="margin"), "bmu_top2",
+         lambda x, w2: ((x - w2) ** 2).sum(1), packed_band),
+        ("cosine margin", dict(activation_distance="cosine", bmu_precision="margin"),
+         "bmu_top2", cos64, lambda som: cos_band),
     )
     launches = {}
     for name, kw, kernel, d64, band in configs:
@@ -684,7 +1026,241 @@ def phase_short_runs(torch):
         launches[kernel] = launches.get(kernel, 0) + counts[kernel]
         ref = XPySom.from_numpy(som.get_weights(), **kw, use_kernels=False)
         _winner_flips(name, som, ref, probe, d64, band(som))
+        mode = kw.get("bmu_precision")
+        if mode in ("bf16", "split2", "margin"):
+            _exact_flips(torch, name, som, probe, d64, band(som), must=mode == "margin")
+        if mode == "margin":
+            _margin_share(torch, name, som, data)
+        _bmu_time(torch, name, som, data)
     return launches
+
+
+def _exact_flips(torch, name, som, probe, d64, band, must):
+    """Winners against the float64 argmin of the activation on the probe;
+    with ``must``, every difference has to be a near-tie within ``band``
+    (margin's contract: exact up to the packed re-rank's floor)."""
+    win = som.predict(probe)
+    w = som.get_weights().reshape(-1, probe.shape[1]).astype(np.float64)
+    wt = torch.from_numpy(w).cuda()
+    best = []
+    for s in range(0, len(probe), 512):
+        xb = torch.from_numpy(probe[s:s + 512].astype(np.float64)).cuda()
+        if som._activation_distance_name == "cosine":
+            d = 1 - (xb @ wt.T) / (xb.norm(dim=1, keepdim=True) * wt.norm(dim=1)[None, :])
+        else:
+            d = (xb * xb).sum(1, keepdim=True) - 2 * xb @ wt.T + (wt * wt).sum(1)[None, :]
+        best.append(d.argmin(1).cpu().numpy())
+    best = np.concatenate(best)
+    diff = np.nonzero(win != best)[0]
+    bad = 0
+    for r in diff:
+        x, w2 = probe[r].astype(np.float64), w[[win[r], best[r]]]
+        dd = d64(x, w2)
+        bad += abs(dd[0] - dd[1]) > band(x, w2, dd)
+    print(f"{name}: winners equal the float64 argmin on {len(probe) - len(diff)} of "
+          f"{len(probe)}; {len(diff)} differ, {len(diff) - bad} of them near-ties")
+    if must:
+        require(not bad, f"{name}: {bad} winners differ from the float64 argmin beyond the "
+                "packed floor")
+
+
+def _margin_share(torch, name, som, data):
+    """The share of each chunk's rows that margin's gate sends to the
+    re-rank, on the trained codebook."""
+    from xpysom_dask_tpu_torch.ops.kernels import bmu as kb
+
+    w = torch.from_numpy(som.get_weights().reshape(-1, data.shape[1]).astype(np.float32)).cuda()
+    if som._activation_distance_name == "cosine":
+        cb = kb.cosine_codebook(w, "margin")
+    else:
+        cb = kb.PackedCodebook(w, "margin")
+    shares = []
+    for s in range(0, len(data), FLAGSHIP["chunk"]):
+        x = torch.from_numpy(data[s:s + FLAGSHIP["chunk"]]).cuda()
+        _, val, _, val2 = kb.bmu_top2(*cb.operands(x))
+        xc = x if cb.center is None else x - cb.center[None, :]
+        shares.append(float(kb.margin_suspects(val, val2, xc, cb.w).float().mean()))
+    cap = 0.125
+    print(f"{name}: rescued share per chunk {[round(v, 5) for v in shares]} "
+          f"(capacity {cap}; above it a chunk takes the full packed pass)")
+
+
+def _bmu_time(torch, name, som, data):
+    """``make_bmu_fn`` over the data on device-resident chunks, median of
+    three synchronized host-clock runs."""
+    from xpysom_dask_tpu_torch import core
+
+    chunks, _, _ = som._chunked(data)
+    fn = core.make_bmu_fn(som._spec)
+    w = som._device_weights()
+    fn(w, chunks)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(w, chunks)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    print(f"{name}: BMU search over {len(data)} samples {sorted(times)[1] * 1e3:.3f} ms "
+          "(device-resident chunks, median of 3)")
+
+
+def phase_margin_compact(torch, card):
+    """Mode 'margin' where its gate leaves most rows alone: one flagship
+    chunk of clustered data (after tests/test_margin_bmu.py:45), whose
+    suspects fit the rescue buffer, so the compacted re-rank runs on the
+    card. The branch is asserted (one K1 launch over the buffer's rows);
+    the winners are held against use_kernels=False and the float64 argmin
+    (differences only inside the packed floor), and through the model's
+    ``predict``. The search is timed by CUDA events beside K2 (bf16) and
+    the packed K1 over all rows and over the buffer, and the host read of
+    the suspect count is timed apart."""
+    from xpysom_dask_tpu_torch import XPySom
+    from xpysom_dask_tpu_torch.ops import kernels
+    from xpysom_dask_tpu_torch.ops.kernels import bmu as kb
+
+    f = FLAGSHIP
+    xy, d, n = f["x"] * f["y"], f["d"], f["chunk"]
+    rng = np.random.RandomState(7)
+    # XY/64 clusters of 4 codebook rows (spread 2e-2) among spread rows;
+    # 6% of the samples fall among a cluster's rows (margins ~1e-2, far
+    # inside the bf16 gate of ~0.4 and far outside the packed floor of
+    # ~1e-4), the others on a spread row (margins of several units)
+    nc = xy // 64
+    w0 = rng.rand(xy, d)
+    base = rng.rand(nc, d)
+    w0[:4 * nc] = np.repeat(base, 4, axis=0) + 2e-2 * rng.randn(4 * nc, d)
+    x = w0[rng.randint(4 * nc, xy, size=n)] + 1e-2 * rng.randn(n, d)
+    near = rng.rand(n) < 0.06
+    x[near] = base[rng.randint(nc, size=int(near.sum()))] + 2e-2 * rng.randn(int(near.sum()), d)
+    w = w0[rng.permutation(xy)].astype(np.float32)  # the clusters span every tile
+    x = x.astype(np.float32)
+
+    xt = torch.from_numpy(x).cuda()
+    cb = kb.PackedCodebook(torch.from_numpy(w).cuda(), "margin")
+    ops = cb.operands(xt)
+    xc = xt - cb.center[None, :]
+    i_b, v_b, _, v2_b = kb.bmu_top2(*ops)
+    suspect = kb.margin_suspects(v_b, v2_b, xc, cb.w)
+    n_sus = int(suspect.sum())
+    cap = min(n, max(8, -(-int(n * kb.RESCUE_FRAC) // 8) * 8))
+    sizes = []
+
+    def k1(a, w_aug, xy_):
+        sizes.append(a.shape[0])
+        return kb.bmu_argmin(a, w_aug, xy_)
+
+    i_r, v_r = kb.margin_rescue(i_b, v_b, v2_b, xc, cb.w, cb.w_sq, cb.w_aug_packed, k1)
+    require(0 < n_sus <= cap, f"margin compact: {n_sus} suspects against capacity {cap}")
+    require(sizes == [cap], f"margin compact: K1 ran over {sizes} rows, not the buffer's {cap}")
+    i_k, v_k = cb.argmin(xt)
+    i_p, _ = cb.argmin(xt, use_kernels=False)
+    torch.cuda.synchronize()
+    require(torch.equal(i_k, i_r) and torch.equal(v_k, v_r),
+            "margin compact: the search differs from its own rescue")
+
+    # the float64 argmin of the centered operands, in row blocks on the card
+    center = cb.center.double()
+    xc64 = xt.double() - center
+    wc64 = torch.from_numpy(w).cuda().double() - center
+    wsq64 = (wc64 * wc64).sum(1)
+    best = torch.cat([(wsq64[None, :] - 2 * xc64[s:s + 2048] @ wc64.T).argmin(1)
+                      for s in range(0, n, 2048)]).cpu().numpy()
+    got, plain, raw = (t.cpu().numpy() for t in (i_k, i_p, i_b))
+    xc_np, wc_np = xc64.cpu().numpy(), wc64.cpu().numpy()
+    for label, other in (("use_kernels=False", plain), ("the float64 argmin", best)):
+        diff = np.nonzero(got != other)[0]
+        _check_near_ties(f"margin compact vs {label}", diff, xc_np, wc_np, got, other)
+        print(f"margin compact: winners equal {label} on {n - len(diff)} of {n}; the "
+              f"{len(diff)} others are near-ties inside the packed floor")
+    print(f"margin compact: {n_sus} suspects of {n} ({n_sus / n:.4f}) in a buffer of {cap}; "
+          f"the bf16 pass alone differs from the float64 argmin on "
+          f"{int((raw != best).sum())} rows, the rescue on {int((got != best).sum())}")
+
+    # through the model's entry point
+    som = XPySom.from_numpy(w.reshape(f["x"], f["y"], d), sigma=64, random_seed=0,
+                            bmu_precision="margin")
+    kernels.reset_launch_counts()
+    win = som.predict(x)
+    counts = kernels.launch_counts()
+    require(np.array_equal(win, got), "margin compact: predict differs from the search")
+    require(counts["bmu_top2"] >= 1 and counts["bmu_argmin"] >= 1,
+            f"margin compact: predict launched {counts}")
+
+    # times at this chunk (CUDA events; the full search's include its host
+    # read and the idle device around it)
+    packed = kb.PackedCodebook(torch.from_numpy(w).cuda())
+    a_p, w_aug_p, _ = packed.operands(xt)
+    a_buf = a_p[:cap].contiguous()
+    t = {
+        "margin search": cuda_ms(torch, lambda: cb.argmin(xt)),
+        "its operands (centering, bf16 packing)": cuda_ms(torch, lambda: cb.operands(xt)),
+        "K2 on bf16 operands": cuda_ms(torch, lambda: kb.bmu_top2(*ops)),
+        "the rescue after K2 (gate, host read, compaction, packing, K1 over the buffer, "
+        "scatter, exact values)": cuda_ms(torch, lambda: kb.margin_rescue(
+            i_b, v_b, v2_b, xc, cb.w, cb.w_sq, cb.w_aug_packed, kb.bmu_argmin)),
+        "gate": cuda_ms(torch, lambda: kb.margin_suspects(v_b, v2_b, xc, cb.w)),
+        f"packed K1 over the {cap}-row buffer": cuda_ms(
+            torch, lambda: kb.bmu_argmin(a_buf, w_aug_p, xy)),
+        f"packed K1 over all {n} rows": cuda_ms(torch, lambda: kb.bmu_argmin(a_p, w_aug_p, xy)),
+    }
+    for label, ms in t.items():
+        print(f"time {label} at the flagship chunk: {ms:.4f} ms (CUDA events; {card})")
+    reads = []
+    for _ in range(50):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        int(torch.count_nonzero(suspect))
+        reads.append(time.perf_counter() - t0)
+    print(f"time host read of the suspect count (count_nonzero + copy to the host, idle "
+          f"queue): median {sorted(reads)[25] * 1e3:.4f} ms, mean {np.mean(reads) * 1e3:.4f} ms "
+          f"of 50 (host clock; {card})")
+
+
+def phase_activate(torch, card):
+    """``activate`` under manhattan on 8192 samples x 16384 nodes: K8
+    launches, and the matrix equals the plain versions' (use_kernels=False
+    on the card) bit for bit. Returns the counts."""
+    from xpysom_dask_tpu_torch import XPySom
+    from xpysom_dask_tpu_torch.ops import kernels
+
+    f = FLAGSHIP
+    data = np.random.RandomState(6).rand(8192, f["d"]).astype(np.float32)
+    kw = dict(sigma=64, random_seed=0, activation_distance="manhattan")
+    som = XPySom(f["x"], f["y"], f["d"], **kw)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = som.activate(data)
+    took = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    require(counts["manhattan_distance"] >= 1, "activate: K8 never launched")
+    require(got.shape == (8192, f["x"] * f["y"]) and np.isfinite(got).all(),
+            f"activate: malformed {got.shape}")
+    t0 = time.perf_counter()
+    want = XPySom(f["x"], f["y"], f["d"], **kw, use_kernels=False).activate(data)
+    took_plain = time.perf_counter() - t0
+    require(np.array_equal(got.view(np.int32), want.view(np.int32)),
+            "activate: K8's matrix differs from the plain versions' in bits")
+    print(f"activate (manhattan, 8192 x 16384): bitwise equal to use_kernels=False; "
+          f"{took:.3f} s with K8 ({counts['manhattan_distance']} launches), "
+          f"{took_plain:.3f} s plain (host clock, host copies included)")
+    # K8 at the shape activate launches it with: one chunk of _matrix_chunk
+    # rows against the whole codebook
+    from xpysom_dask_tpu_torch.ops.kernels import manhattan as km
+
+    rows = som._matrix_chunk
+    xg = torch.from_numpy(data[:rows]).cuda()
+    wg = som._device_weights().reshape(-1, f["d"]).contiguous()
+    ms = cuda_ms(torch, lambda: km.manhattan_distance(xg, wg))
+    xy = wg.shape[0]
+    b_ms, b_by = bound(_elementwise_seconds(1, rows, xy, f["d"]),
+                       4 * (rows * f["d"] + xy * f["d"] + rows * xy))
+    print(f"time manhattan_distance (K8) at activate's chunk ({rows} x {xy}, "
+          f"{-(-rows // 64)} blocks of 64 rows): {ms:.4f} ms per launch "
+          f"(bound {b_ms:.4f} ms by {b_by}), "
+          f"{ms * counts['manhattan_distance']:.3f} ms for activate's "
+          f"{counts['manhattan_distance']} launches (CUDA events; {card})")
+    return counts
 
 
 def main():
@@ -701,22 +1277,30 @@ def main():
 
     smi = phase_card(torch)
     phase_build()
-    timings, errs = phase_kernels(torch, smi)
-    t2, e2 = phase_tile_kernels(torch, smi)
-    timings.update(t2)
-    errs.update(e2)
+    timings, errs, bounds = phase_kernels(torch, smi)
+    for phase in (phase_tile_kernels, phase_mode_kernels):
+        t2, e2, b2 = phase(torch, smi)
+        timings.update(t2)
+        errs.update(e2)
+        bounds.update(b2)
     data, kw, w3, counts = phase_main_path(torch)
     phase_determinism(torch, data, kw, w3)
+    counts_paths = phase_split3_and_hex_paths(torch, data)
     del data
     counts_l1 = phase_manhattan_path(torch)
-    # each kernel's launches on the main path that runs it: the flagship
-    # path for K1/K2/K9, the manhattan path for K5; K4, K6 and K7 serve
-    # the shorter runs, whose counts are checked there
+    # each kernel's launches on the path that runs it, its counters set
+    # to 0 just before that path and read just after: the flagship path
+    # for K1/K2/K9, the split3 path for K3, the manhattan path for K5,
+    # activate under manhattan for K8; K4, K6 and K7 serve the shorter
+    # runs, whose counts are checked there
     launches = dict(counts)
+    launches["bmu_split3"] = counts_paths["split3"]["bmu_split3"]
     launches["bmu_manhattan"] = counts_l1["bmu_manhattan"]
     short = phase_short_runs(torch)
     for name in ("bmu_highest", "bmu_norm_p_odd", "bmu_norm_p_frac"):
         launches[name] = short[name]
+    phase_margin_compact(torch, smi)
+    launches["manhattan_distance"] = phase_activate(torch, smi)["manhattan_distance"]
     require("jax" not in sys.modules, "JAX was imported")
 
     record = {
@@ -731,6 +1315,9 @@ def main():
                 "max_abs_err": errs[name],
                 "ms": timings[name][0],
                 "plain_ms": timings[name][1],
+                "bound_ms": bounds[name][0],
+                "bound_by": bounds[name][1],
+                "library_ms": timings[name][2],
             }
             for name in REPLACES
         ],

@@ -182,8 +182,8 @@ def test_probe_spec_resolves_norm_p_to_highest():
         XPySom(4, 4, 3, device="cpu", activation_distance="norm_p", bmu_precision="margin")
     with pytest.raises(ValueError, match="margin"):
         JaxSom(4, 4, 3, activation_distance="norm_p", bmu_precision="margin")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        XPySom(4, 4, 3, device="cpu", bmu_precision="margin")
+    # margin is served for the other activations
+    assert XPySom(4, 4, 3, device="cpu", bmu_precision="margin")._bmu_precision == "margin"
 
 
 def test_qe_searches_under_the_specs_mode(monkeypatch):

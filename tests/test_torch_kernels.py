@@ -189,10 +189,12 @@ def test_launch_counters_stay_zero_on_cpu():
     ke.bmu_manhattan(x, w)
     ke.bmu_norm_p_odd(x, w, 3)
     ke.bmu_norm_p_frac(x, w, 1.5)
+    kb.PackedCodebook(w, "split3").argmin(x)
+    kernels.manhattan_distance(x, w)
     assert kernels.launch_counts() == {name: 0 for name in kernels.KERNELS}
     assert set(kernels.KERNELS) == {
         "bmu_argmin", "bmu_top2", "scatter_stats", "bmu_highest", "bmu_manhattan",
-        "bmu_norm_p_odd", "bmu_norm_p_frac",
+        "bmu_norm_p_odd", "bmu_norm_p_frac", "bmu_split3", "manhattan_distance",
     }
 
 
@@ -233,7 +235,9 @@ def test_kernel_build_is_lazy():
     from xpysom_dask_tpu_torch.ops.kernels import build
 
     assert build._lib is None
-    assert set(build.SOURCES) == {"bmu.cu", "stats.cu", "highest.cu", "elementwise.cu"}
+    assert set(build.SOURCES) == {
+        "bmu.cu", "stats.cu", "highest.cu", "elementwise.cu", "manhattan.cu"
+    }
     assert build.HEADERS == ("tile_argmin.cuh",)
     csrc = Path(kb.__file__).resolve().parents[2] / "csrc"
     for name in build.SOURCES + build.HEADERS:
@@ -328,7 +332,7 @@ def test_norm_p_even_rejects_bad_p_and_margin():
     with pytest.raises(ValueError, match="margin"):
         kb.bmu_norm_p_even(x, x, p=4, mode="margin")
     with pytest.raises(ValueError, match="serve"):
-        kb.PackedCodebook(x, "split3")
+        kb.PackedCodebook(x, "fast")
 
 
 # -- cosine glue over K1 / K4 ------------------------------------------------

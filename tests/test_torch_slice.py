@@ -221,8 +221,12 @@ def test_edge_contracts():
     ],
 )
 def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        XPySom(4, 4, 3, device="cpu", **kwargs)
+    """Hexagonal grids and every precision mode are served; data-parallel
+    training (``use_dask=True``) still raises, whatever the other
+    options."""
+    XPySom(4, 4, 3, device="cpu", **{k: v for k, v in kwargs.items() if k != "use_dask"})
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+        XPySom(4, 4, 3, device="cpu", **dict(kwargs, use_dask=True))
 
 
 def test_unported_methods_and_inputs_raise():
@@ -231,8 +235,8 @@ def test_unported_methods_and_inputs_raise():
     with pytest.raises(ValueError, match="not recognized"):
         XPySom(4, 4, 3, device="cpu", bmu_precision="fast")
     for call in (
-        lambda: som.distance_map(),
-        lambda: som.activate(data),
+        lambda: som.get_neig_functions(),
+        lambda: som.autotune_kernel(),
         lambda: som.save_checkpoint("unused.npz"),
         lambda: som.train(data, 2, verbose=True),
         lambda: som.train(data, 2, checkpoint_path="unused.npz", checkpoint_every=1),

@@ -10,7 +10,8 @@ over epochs and chunks of eager launches.
 
 The BMU search routes as the JAX core's ``_bmu_chunk`` does
 (``_kernel_bmu_kind``): euclidean and cosine through the GEMM-form
-kernels (K1 in mode ``packed``, K4 in mode ``highest``), manhattan and
+kernels (K1 in modes ``packed``, ``bf16`` and ``split2``, K3 in
+``split3``, K4 in ``highest``, K2 then K1 in ``margin``), manhattan and
 odd/fractional-p norm_p through the elementwise kernels (K5–K7), even-p
 norm_p through its binomial expansion on K4 (or K1), and the ``_no_opt``
 names and ``p <= 0`` through a plain distance matrix.
@@ -47,6 +48,7 @@ __all__ = [
     "make_bmu_fn",
     "make_quantization_stats_fn",
     "make_topographic_stats_fn",
+    "te_fused_mode",
 ]
 
 _MODES = ("packed", "bf16", "split2", "split3", "highest", "margin")
@@ -58,8 +60,7 @@ class SomSpec:
     codebook lives outside. ``bmu_precision`` is validated against the
     JAX package's modes and resolved as it resolves them: ``None`` means
     ``'highest'`` for norm_p (its expansion cancels below exact
-    precision) and ``'packed'`` otherwise. The port serves ``'packed'``
-    and ``'highest'``."""
+    precision) and ``'packed'`` otherwise. Every mode is served."""
 
     x: int
     y: int
@@ -94,11 +95,6 @@ class SomSpec:
                     "activations (the expansion's cancellation defeats the "
                     "margin gate); use 'highest'"
                 )
-        if mode not in kbmu.GEMM_MODES:
-            raise NotImplementedError(
-                f"bmu_precision={mode!r} is not ported yet (ROADMAP Queue 1 "
-                "item 6, the next slice); the port serves 'packed' and 'highest'"
-            )
         object.__setattr__(self, "bmu_precision", mode)
         object.__setattr__(
             self, "use_kernels", True if self.use_kernels is None else bool(self.use_kernels)
@@ -339,34 +335,48 @@ def make_quantization_stats_fn(spec: SomSpec):
     return run
 
 
+def te_fused_mode(spec: SomSpec) -> str:
+    """Precision mode of TE's top-2 search (the JAX core's
+    ``te_fused_mode``): TE is exact by contract like training, so every
+    mode but ``'bf16'`` maps onto the exact packed split (``'margin'``
+    exists to be exact; ``'split2'``, ``'split3'`` and ``'highest'`` are
+    exact by other means); ``'bf16'`` stays opt-in."""
+    return "bf16" if spec.bmu_precision == "bf16" else "packed"
+
+
 def make_topographic_stats_fn(spec: SomSpec):
     """``tstats(w, data, mask) -> (Σ errors, Σ mask)``: top-2 BMUs by
-    euclidean distance (K2), an error where they are not adjacent on the
-    rectangular grid (``|Δx| > 1 or |Δy| > 1``). The search runs in mode
-    ``'packed'`` whatever the spec's mode, as the JAX core's
-    ``te_fused_mode`` maps ``'highest'`` (exact by other means) onto the
-    exact packed split."""
+    euclidean distance (K2 in mode ``te_fused_mode(spec)``), an error where
+    they are not adjacent: ``|Δx| > 1 or |Δy| > 1`` on the rectangular
+    grid, a euclidean offset distance ``> 1.5`` on the hexagonal one. The
+    hexagonal branch indexes the ``(y, x)``-shaped coordinate meshes with
+    ``[bx, by]`` as the JAX core and the reference do, which is only
+    self-consistent for square maps; others raise."""
     if spec.topology == "hexagonal" and spec.x != spec.y:
         raise ValueError(
             "topographic_error on hexagonal topology requires a square map "
             f"(got {spec.x}x{spec.y})"
         )
-    if spec.topology != "rectangular":
-        raise NotImplementedError(
-            "hexagonal topographic_error is not ported yet (ROADMAP Queue 1 "
-            "item 6)"
-        )
+    xx_np, yy_np = grid_coordinates(spec.x, spec.y, spec.topology)
+    mode = te_fused_mode(spec)
 
     def run(w, data, mask):
-        cb = kbmu.PackedCodebook(w.reshape(spec.xy, spec.input_len), "packed")
+        cb = kbmu.PackedCodebook(w.reshape(spec.xy, spec.input_len), mode)
+        xx = torch.as_tensor(xx_np, dtype=_F32, device=w.device)
+        yy = torch.as_tensor(yy_np, dtype=_F32, device=w.device)
         errs = torch.zeros((), dtype=_F32, device=w.device)
         n = torch.zeros((), dtype=_F32, device=w.device)
         for c in range(data.shape[0]):
             x, m = data[c], mask[c]
             i1, _, i2, _ = cb.top2(x, spec.use_kernels)
-            bad = (torch.abs(i1 // spec.y - i2 // spec.y) > 1) | (
-                torch.abs(i1 % spec.y - i2 % spec.y) > 1
-            )
+            b1x, b1y = (i1 // spec.y).long(), (i1 % spec.y).long()
+            b2x, b2y = (i2 // spec.y).long(), (i2 % spec.y).long()
+            if spec.topology == "rectangular":
+                bad = (torch.abs(b1x - b2x) > 1) | (torch.abs(b1y - b2y) > 1)
+            else:
+                dx = xx[b1x, b1y] - xx[b2x, b2y]
+                dy = yy[b1x, b1y] - yy[b2x, b2y]
+                bad = torch.sqrt(dx * dx + dy * dy) > 1.5
             errs = errs + torch.sum(bad.to(_F32) * m)
             n = n + torch.sum(m)
         return errs, n

@@ -33,17 +33,8 @@
 
 namespace {
 
-__device__ __forceinline__ float absdiff(float a, float b) {
-  return fabsf(__fsub_rn(a, b));
-}
-
-struct L1Term {
-  static constexpr bool kChain = false;
-  __device__ __forceinline__ float operator()(float acc, float a, float b) const {
-    return __fadd_rn(acc, absdiff(a, b));
-  }
-  __device__ __forceinline__ float finish(float acc, int) const { return acc; }
-};
+using xps_tile::absdiff;
+using xps_tile::L1Term;
 
 // t^p = t * t^(p - 1) for odd p >= 1: reps = p - 1
 struct OddTerm {

@@ -10,13 +10,18 @@ package does, so the same seed gives the same initial codebook.
 
 This port serves every activation of the JAX package (euclidean, cosine,
 manhattan, norm_p with any p, and the ``_no_opt`` names) on rectangular
-grids, in the precision modes ``'packed'`` and ``'highest'``. The
-methods and options still to be ported raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+and hexagonal grids, in every precision mode (``'packed'``, ``'bf16'``,
+``'split2'``, ``'split3'``, ``'highest'``, ``'margin'``), and the analysis
+methods (``activate``, ``distance_from_weights``, ``quantization``,
+``distance_map``, ``activation_response``, ``win_map``, ``labels_map``,
+the coordinate helpers). The methods and options still to be ported
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from collections import Counter, defaultdict
 from warnings import warn
 
 import numpy as np
@@ -25,7 +30,7 @@ import torch
 from .. import core
 from ..core import SomSpec, chunk_data
 from ..ops.decays import DECAY_REGISTRY
-from ..ops.distances import DistanceFunction
+from ..ops.distances import DistanceFunction, euclidean_distance, manhattan_distance_no_opt
 from ..utils.hw import default_n_parallel, training_chunk
 
 __all__ = ["XPySom"]
@@ -52,7 +57,15 @@ def _as_numpy_2d(data) -> np.ndarray:
 
 
 def _default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The card: a model without ``device=`` runs on CUDA, and a machine
+    without a usable card is an error, never a quiet fall back to the
+    CPU."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card is available (torch.cuda.is_available() is false); "
+            "pass device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda")
 
 
 class XPySom:
@@ -86,8 +99,9 @@ class XPySom:
         Parameter semantics follow the JAX package's constructor. Port
         specific:
 
-        device : str | torch.device (default: 'cuda' when a card is
-            present, else 'cpu'). Where training and scoring run.
+        device : str | torch.device (default: 'cuda'). Where training and
+            scoring run. Without a usable card the default raises
+            RuntimeError; pass device='cpu' to run on the CPU.
 
         use_kernels : bool (default True). False runs the plain PyTorch
             versions of the kernels on the card too (the reference's
@@ -95,9 +109,8 @@ class XPySom:
             always run.
 
         bmu_precision : validated and resolved like the JAX package
-            (default 'highest' for norm_p, else 'packed'); 'packed' and
-            'highest' are served, the other modes raise
-            NotImplementedError.
+            (default 'highest' for norm_p, else 'packed'); all six modes
+            are served ('margin' is refused with norm_p).
 
         activation_distance : 'euclidean', 'cosine', 'manhattan',
             'norm_p' (``activation_distance_kwargs={'p': ...}``, default
@@ -136,6 +149,15 @@ class XPySom:
             msg = "%s not supported only hexagonal and rectangular available"
             raise ValueError(msg % topology)
         self.topology = topology
+        # euclidean coordinate meshes, shape (y, x), hex offset applied
+        self._xx, self._yy = core.grid_coordinates(x, y, topology)
+        if topology == "hexagonal" and neighborhood_function in ["triangle"]:
+            # the reference warns, then raises below: hexagonal grids
+            # offer no triangle
+            warn(
+                "triangle neighborhood function does not "
+                + "take in account hexagonal topology"
+            )
         if decay_function not in DECAY_REGISTRY:
             msg = "%s not supported. Functions available: %s"
             raise ValueError(msg % (decay_function, ", ".join(DECAY_REGISTRY.keys())))
@@ -146,8 +168,6 @@ class XPySom:
             msg = "%s not supported. Functions available: %s"
             raise ValueError(msg % (neighborhood_function, ", ".join(available)))
         self.neighborhood_func_name = neighborhood_function
-        if topology == "hexagonal":
-            _not_ported("topology='hexagonal'", 6)
 
         self._activation_distance_name = activation_distance
         self._activation_distance_kwargs = dict(activation_distance_kwargs)
@@ -159,6 +179,17 @@ class XPySom:
                       bmu_precision=bmu_precision, use_kernels=use_kernels)
         self._bmu_precision = cfg.bmu_precision
         self._use_kernels = cfg.use_kernels
+        if self._bmu_precision == "split2" and input_len < 32:
+            # split2's self-consistent ‖w_h‖² makes nodes whose bf16
+            # shadows coincide tie exactly, and the first-index tie-break
+            # then starves the later nodes (the JAX package's measured map
+            # collapse on low-D clustered data)
+            warn(
+                f"bmu_precision='split2' with input_len={input_len} < 32: "
+                "coincident bf16 codebook shadows can starve nodes during "
+                "training (map collapse; BASELINE.md round 5). split2 only "
+                "outruns 'packed' at wide D — prefer 'packed' here."
+            )
 
         self._device = torch.device(device) if device is not None else _default_device()
         # The kernels' chunk default (16384) is only safe where the search
@@ -254,12 +285,14 @@ class XPySom:
 
     # -- winner ---------------------------------------------------------------
 
-    def _winner_flat(self, data2d: np.ndarray) -> np.ndarray:
+    def _winner_flat(self, data2d: np.ndarray, spec: SomSpec = None) -> np.ndarray:
+        """Flat winners of ``data2d`` under ``spec`` (default: the model's,
+        so by the activation distance)."""
         self._check_input_len(data2d)
         if data2d.shape[0] == 0:
             return np.empty(0, dtype=np.int64)
         chunks, _, n = self._chunked(data2d)
-        bmu = core.make_bmu_fn(self._spec)(self._device_weights(), chunks)
+        bmu = core.make_bmu_fn(spec or self._spec)(self._device_weights(), chunks)
         return bmu.reshape(-1)[:n].cpu().numpy()
 
     def winner(self, x):
@@ -383,37 +416,130 @@ class XPySom:
         c2 = np.linspace(-1, 1, self._y)[None, :, None]
         self._weights[...] = c1 * pc[pc_order[0]] + c2 * pc[pc_order[1]]
 
-    # -- not ported yet -----------------------------------------------------------
+    # -- analysis ---------------------------------------------------------------
+
+    def get_euclidean_coordinates(self):
+        """Euclidean-plane positions of the neurons as two meshgrids."""
+        return self._xx.T, self._yy.T
+
+    def convert_map_to_euclidean(self, xy):
+        """Map coordinates → euclidean coordinates for the topology."""
+        return self._xx.T[xy], self._yy.T[xy]
+
+    def _chunked_matrix(self, data2d: np.ndarray, w_flat, fn) -> np.ndarray:
+        """The (N, XY) matrix ``fn(x, w_flat)`` on the host, computed on
+        the device in chunks of ``_matrix_chunk`` rows (the result may
+        dwarf device memory; one chunk's matrix is on the device at a
+        time)."""
+        n, xy = data2d.shape[0], w_flat.shape[0]
+        out = np.empty((n, xy), dtype=np.float32)
+        step = max(1, self._matrix_chunk)
+        for s in range(0, n, step):
+            x = torch.from_numpy(data2d[s : s + step]).to(self._device)
+            out[s : s + step] = fn(x, w_flat).cpu().numpy()
+        return out
 
     def activate(self, x):
-        _not_ported("activate", 7)
+        """Activation map for x: element (n, j) is the response of flat
+        neuron j to sample n under the activation distance. For the
+        default 'euclidean' this is the partial squared distance
+        (argmin-equivalent). Under 'manhattan' the matrix is K8 on the card
+        (its plain version with ``use_kernels=False``)."""
+        x2d = np.atleast_2d(_as_numpy_2d(x))
+        self._check_input_len(x2d)
+        dist = self._spec.distance_fn()
+        fn = dist.flat
+        if dist.name == "manhattan" and not self._use_kernels:
+            fn = manhattan_distance_no_opt  # K8's plain version
+        w_flat = self._device_weights().reshape(-1, self._input_len)
+        return self._chunked_matrix(x2d, w_flat, fn)
 
     def distance_from_weights(self, data, weights=None):
-        _not_ported("distance_from_weights", 7)
+        """Full (N, X·Y) euclidean distance matrix against ``weights``
+        (default: this SOM's codebook), on the host, computed in budgeted
+        chunks."""
+        data2d = np.atleast_2d(_as_numpy_2d(data))
+        w_host = np.asarray(self._weights if weights is None else weights, dtype=np.float32)
+        w_flat = torch.from_numpy(np.ascontiguousarray(w_host.reshape(-1, self._input_len)))
+        return self._chunked_matrix(data2d, w_flat.to(self._device), euclidean_distance)
 
     def quantization(self, data):
-        _not_ported("quantization", 7)
+        """Code book vector of the winning neuron for each sample: BMU by
+        euclidean distance whatever the activation (under the model's
+        precision mode), as the reference defines it."""
+        data2d = np.atleast_2d(_as_numpy_2d(data))
+        self._check_input_len(data2d)
+        spec = dataclasses.replace(self._spec, distance="euclidean", distance_kwargs=())
+        bmu = self._winner_flat(data2d, spec=spec)
+        return self._weights.reshape(-1, self._input_len)[bmu]
 
     def distance_map(self):
-        _not_ported("distance_map", 7)
+        """U-matrix: normalized sum of distances between each neuron and its
+        neighbors (host numpy, one shifted-difference norm per neighbor
+        offset)."""
+        w = np.asarray(self._weights, dtype=np.float64)
+        x_dim, y_dim = w.shape[0], w.shape[1]
+
+        ii = [[0, -1, -1, -1, 0, 1, 1, 1]] * 2
+        jj = [[-1, -1, 0, 1, 1, 1, 0, -1]] * 2
+        if self.topology == "hexagonal":
+            ii = [[1, 1, 1, 0, -1, 0], [0, 1, 0, -1, -1, -1]]
+            jj = [[1, 0, -1, -1, 0, 1], [1, 0, -1, -1, 0, 1]]
+
+        def offset_norms(i, j):
+            out = np.zeros((x_dim, y_dim))
+            x0, x1 = max(0, -i), x_dim - max(0, i)
+            y0, y1 = max(0, -j), y_dim - max(0, j)
+            if x0 < x1 and y0 < y1:
+                out[x0:x1, y0:y1] = np.linalg.norm(
+                    w[x0:x1, y0:y1] - w[x0 + i : x1 + i, y0 + j : y1 + j], axis=-1
+                )
+            return out
+
+        sums = [
+            np.sum([offset_norms(i, j) for i, j in zip(ii[e], jj[e])], axis=0)
+            for e in (0, 1)
+        ]
+        if self.topology == "hexagonal":
+            # e = (y % 2 == 0) selects the offset set per column parity
+            even_col = (np.arange(y_dim) % 2 == 0)[None, :]
+            um = np.where(even_col, sums[1], sums[0])
+        else:
+            um = sums[0]
+        return um / um.max()
 
     def activation_response(self, data):
-        _not_ported("activation_response", 7)
+        """Counts how many times each neuron wins."""
+        self._reject_source(data)
+        a = np.zeros((self._x, self._y))
+        flat = self._winner_flat(np.atleast_2d(_as_numpy_2d(data)))
+        np.add.at(a, (flat // self._y, flat % self._y), 1)
+        return a
 
     def win_map(self, data):
-        _not_ported("win_map", 7)
+        """Dict (i, j) → list of samples mapped there."""
+        self._check_input_len(data)
+        winmap = defaultdict(list)
+        for x, win in zip(data, self.winner(data)):
+            winmap[win].append(x)
+        return winmap
 
     def labels_map(self, data, labels):
-        _not_ported("labels_map", 7)
+        """Dict (i, j) → Counter of the labels mapped there."""
+        self._check_input_len(data)
+        if not len(data) == len(labels):
+            raise ValueError("data and labels must have the same length.")
+        winmap = defaultdict(list)
+        for win, label in zip(self.winner(data), labels):
+            winmap[win].append(label)
+        for position in winmap:
+            winmap[position] = Counter(winmap[position])
+        return winmap
+
+    # -- not ported yet -----------------------------------------------------------
 
     def get_neig_functions(self):
         _not_ported("get_neig_functions", 7)
-
-    def get_euclidean_coordinates(self):
-        _not_ported("get_euclidean_coordinates", 7)
-
-    def convert_map_to_euclidean(self, xy):
-        _not_ported("convert_map_to_euclidean", 7)
 
     def autotune_kernel(self, apply=True, n_samples=None, **kwargs):
         _not_ported("autotune_kernel", 7)

@@ -146,10 +146,11 @@ def manhattan_distance_no_opt(x, w):
 
 
 def manhattan_distance(x, w):
-    """Manhattan distance matrix. The JAX package computes it with a
-    Pallas kernel on the TPU (``ops/pallas/manhattan.py``, not ported yet:
-    ROADMAP Queue 2); here it is the broadcast form."""
-    return manhattan_distance_no_opt(x, w)
+    """Manhattan distance matrix: K8 (``ops/kernels/manhattan.py``) on a
+    CUDA tensor, its plain version (the broadcast form) on a CPU tensor."""
+    from .kernels.manhattan import manhattan_distance as k8
+
+    return k8(x.float().contiguous(), w.float().contiguous())
 
 
 _DISTANCE_FUNCTIONS = {

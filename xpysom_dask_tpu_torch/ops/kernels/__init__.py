@@ -2,17 +2,20 @@
 ``xpysom_dask_tpu/ops/pallas``), each behind a wrapper that counts its
 launches, plus the wrappers' plain PyTorch versions."""
 
-from .bmu import PackedCodebook, bmu_argmin, bmu_highest, bmu_top2
+from .bmu import PackedCodebook, bmu_argmin, bmu_highest, bmu_split3, bmu_top2
 from .elementwise import ElementwiseCodebook, bmu_manhattan, bmu_norm_p_frac, bmu_norm_p_odd
+from .manhattan import manhattan_distance
 from .stats import scatter_stats
 
 __all__ = [
     "bmu_argmin",
     "bmu_top2",
+    "bmu_split3",
     "bmu_highest",
     "bmu_manhattan",
     "bmu_norm_p_odd",
     "bmu_norm_p_frac",
+    "manhattan_distance",
     "PackedCodebook",
     "ElementwiseCodebook",
     "scatter_stats",
@@ -30,6 +33,8 @@ KERNELS = {
     "bmu_manhattan": bmu_manhattan,
     "bmu_norm_p_odd": bmu_norm_p_odd,
     "bmu_norm_p_frac": bmu_norm_p_frac,
+    "bmu_split3": bmu_split3,
+    "manhattan_distance": manhattan_distance,
 }
 
 

@@ -1,32 +1,45 @@
-"""GEMM-form BMU searches: operand packing, the K1/K2 (packed) and K4
-(highest) wrappers with their plain PyTorch versions, and the cosine and
-even-p norm_p glue that rides them.
+"""GEMM-form BMU searches: operand packing for every precision mode, the
+K1/K2 (packed, bf16, split2), K3 (split3) and K4 (highest) wrappers with
+their plain PyTorch versions, mode ``margin``'s rescue around K2 and K1,
+and the cosine and even-p norm_p glue that rides them.
 
-Counterpart of ``bmu_euclidean`` (modes ``packed`` and ``highest``),
+Counterpart of ``bmu_euclidean`` (every mode), ``_margin_rescue``,
 ``bmu_cosine`` and ``bmu_norm_p_even`` in
-``xpysom_dask_tpu/ops/pallas/bmu.py``. Mode ``packed`` computes the
-partial squared distance ``d = -2 x·w + ‖w‖²`` as ONE augmented bf16 GEMM:
+``xpysom_dask_tpu/ops/pallas/bmu.py``. Every mode computes the partial
+squared distance ``d = -2 x·w + ‖w‖²``; the GEMM modes fold it into ONE
+augmented bf16 GEMM ``A @ W_aug`` (K padded to a multiple of 16):
 
-    A     = [xh | xl | xh | 1 1 1]            (N, K)   bf16
-    W_aug = [wh; wh; wl; s1; s2; s3]          (K, XY)  bf16
+    packed  A = [xh | xl | xh | 1 1 1]   W_aug = [wh; wh; wl; s1; s2; s3]
+    bf16    A = [x_bf16 | 1 1 1]         W_aug = [(-2wᵀ)_bf16; s1; s2; s3]
+    split2  A = [xh | xl | 1 1 1]        W_aug = [wh; wh; s1; s2; s3]
 
 where ``(xh, xl)`` and ``(wh, wl)`` are bf16 splits of x and of ``-2wᵀ``
-and ``s1 + s2 + s3 == ‖w‖²`` exactly; K = 3D+3 padded to a multiple of 16.
-The dropped ``xl·wl`` term is O(2⁻¹⁶) relative, so the winner can differ
-from the exact one only where two distances are within about
-``2⁻¹⁷·Σ_d|x_d||2w_d|`` (a near-tie). Mode ``highest`` computes the same
-``d`` with an exact f32 dot.
+and ``s1 + s2 + s3 == ‖w‖²`` exactly. ``packed`` drops only ``xl·wl``
+(O(2⁻¹⁶) relative): a winner can differ from the exact one only where two
+distances are within about ``2⁻¹⁷·Σ_d|x_d||2w_d|`` (a near-tie). ``bf16``
+is the single-pass throughput mode (~2⁻⁸ relative). ``split2`` solves the
+problem for the bf16-rounded codebook: its ``‖w‖²`` is ``¼·Σ wh²`` of the
+ROUNDED codebook, unless the caller's ``w_sq`` has other semantics
+(cosine, norm_p), which is then split exactly (the JAX ``w_sq_raw``).
+``split3`` takes the pre-split ``xh, xl`` and ``wh, wl`` of ``wᵀ`` and an
+unsplit f32 ``‖w‖²`` and sums three separate f32-accumulated dots in the
+order ``(xh·wh + xh·wl) + xl·wh`` (K3): a different order than packed's
+single chain, which can flip float64 near-ties. ``highest`` computes the
+same ``d`` with an exact f32 dot (K4). ``margin`` runs the bf16 operands
+through K2, then re-ranks only the rows whose top-2 margin lies inside
+the bf16 error bound with packed K1 (:func:`margin_rescue`).
 
 ``PackedCodebook`` owns the codebook side of every GEMM-form search:
-centering by the codebook mean (which shrinks the packed split's error on
-offset data; :func:`center_by_mean` is the one rule, which the norm_p
-expansion applies before it expands), a raw ``‖w‖²`` operand where the
-caller's distance is not euclidean (cosine and the norm_p expansion pass
-zero), and the packing. ``NormPEvenCodebook`` expands both sides and
+centering by the codebook mean (which shrinks the split modes' error on
+offset data; :func:`center_by_mean` is the one centering rule, which the
+norm_p expansion applies before it expands), a raw ``‖w‖²`` operand where
+the caller's distance is not euclidean (cosine and the norm_p expansion
+pass zero), and the packing. ``NormPEvenCodebook`` expands both sides and
 searches through a ``PackedCodebook``.
 
 The kernels: K1 ``bmu_argmin`` replaces ``_kernel_gemm_argmin``, K2
-``bmu_top2`` replaces ``_kernel_gemm_top2`` (``csrc/bmu.cu``) and K4
+``bmu_top2`` replaces ``_kernel_gemm_top2`` and K3 ``bmu_split3`` replaces
+``_kernel_split3`` (three instances of one template in ``csrc/bmu.cu``); K4
 ``bmu_highest`` replaces ``_kernel_highest`` (``csrc/highest.cu``). On a
 CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises.
@@ -45,12 +58,18 @@ __all__ = [
     "split3_bf16",
     "pack_codebook",
     "pack_samples",
+    "split3_codebook",
+    "split3_samples",
     "bmu_argmin",
     "bmu_argmin_plain",
     "bmu_top2",
     "bmu_top2_plain",
+    "bmu_split3",
+    "bmu_split3_plain",
     "bmu_highest",
     "bmu_highest_plain",
+    "margin_suspects",
+    "margin_rescue",
     "bmu_cosine",
     "bmu_norm_p_even",
     "center_by_mean",
@@ -62,8 +81,10 @@ __all__ = [
 
 _BF16 = torch.bfloat16
 _F32 = torch.float32
-# the precision modes the GEMM-form searches serve
-GEMM_MODES = ("packed", "highest")
+# the precision modes the GEMM-form searches serve (the JAX package's six)
+GEMM_MODES = ("packed", "bf16", "split2", "split3", "highest", "margin")
+# the modes whose operands are one augmented GEMM (K1/K2)
+_AUG_MODES = ("packed", "bf16", "split2")
 
 
 def split_bf16(a):
@@ -86,29 +107,71 @@ def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
-def pack_codebook(w_c, w_sq):
-    """``W_aug`` (K16, XY8) bf16 from the centered (XY, D) f32 codebook and
-    its (XY,) squared norms. Columns past XY (padding to a multiple of 8,
-    so each row is 16-byte aligned) are zero; the kernels never rank
-    them."""
+def _pad2(t, rows, cols):
+    """``t`` (bf16) zero-padded to (rows, cols)."""
+    out = torch.zeros((rows, cols), dtype=t.dtype, device=t.device)
+    out[: t.shape[0], : t.shape[1]] = t
+    return out
+
+
+def pack_codebook(w_c, w_sq, mode="packed"):
+    """``W_aug`` (K16, XY8) bf16 of mode ``mode`` (``'packed'``, ``'bf16'``
+    or ``'split2'``) from the centered (XY, D) f32 codebook and its (XY,)
+    ``‖w‖²`` operand. Under ``'split2'`` a ``w_sq`` of None means the
+    rounded codebook's own ``¼·Σ wh²``. Columns past XY (padding to a
+    multiple of 8, so each row is 16-byte aligned) are zero; the kernels
+    never rank them."""
+    xy, _ = w_c.shape
+    w2t = -2.0 * w_c.float().T
+    if mode == "packed":
+        wh, wl = split_bf16(w2t)
+        rows = [wh, wh, wl]
+    elif mode == "bf16":
+        rows = [w2t.to(_BF16)]
+    elif mode == "split2":
+        wh, _ = split_bf16(w2t)
+        rows = [wh, wh]
+        if w_sq is None:
+            # the rounded codebook's norm, summed over d in index order
+            sq = torch.square(wh.float())
+            w_sq = sq[0].clone()
+            for row in sq[1:]:
+                w_sq += row
+            w_sq = 0.25 * w_sq
+    else:
+        raise ValueError(f"mode={mode!r}: one augmented GEMM serves {_AUG_MODES}")
+    body = torch.cat(rows + list(split3_bf16(w_sq.float().reshape(1, xy))), dim=0)
+    return _pad2(body, _round_up(body.shape[0], 16), _round_up(xy, 8))
+
+
+def pack_samples(x_c, mode="packed"):
+    """``A`` (N, K16) bf16 of mode ``mode`` from the centered (N, D) f32
+    samples."""
+    x_c = x_c.float()
+    if mode == "bf16":
+        cols = [x_c.to(_BF16)]
+    elif mode in ("packed", "split2"):
+        xh, xl = split_bf16(x_c)
+        cols = [xh, xl, xh] if mode == "packed" else [xh, xl]
+    else:
+        raise ValueError(f"mode={mode!r}: one augmented GEMM serves {_AUG_MODES}")
+    cols.append(torch.ones((x_c.shape[0], 3), dtype=_BF16, device=x_c.device))
+    body = torch.cat(cols, dim=1)
+    return _pad2(body, x_c.shape[0], _round_up(body.shape[1], 16))
+
+
+def split3_codebook(w_c):
+    """``(wh, wl)`` (D16, XY8) bf16: the split of the centered codebook's
+    transpose ``wᵀ`` (not ``-2wᵀ``: K3 applies the −2 after its sum), zero
+    past D and XY. Zero rows add exact zeros to every dot."""
     xy, d = w_c.shape
-    k16 = _round_up(3 * d + 3, 16)
-    wh, wl = split_bf16(-2.0 * w_c.float().T)
-    s1, s2, s3 = split3_bf16(w_sq.float().reshape(1, xy))
-    w_aug = torch.zeros((k16, _round_up(xy, 8)), dtype=_BF16, device=w_c.device)
-    w_aug[: 3 * d + 3, :xy] = torch.cat([wh, wh, wl, s1, s2, s3], dim=0)
-    return w_aug
+    return tuple(_pad2(t, _round_up(d, 16), _round_up(xy, 8)) for t in split_bf16(w_c.float().T))
 
 
-def pack_samples(x_c):
-    """``A`` (N, K16) bf16 from the centered (N, D) f32 samples."""
+def split3_samples(x_c):
+    """``(xh, xl)`` (N, D16) bf16: the split of the centered samples."""
     n, d = x_c.shape
-    k16 = _round_up(3 * d + 3, 16)
-    xh, xl = split_bf16(x_c.float())
-    a = torch.zeros((n, k16), dtype=_BF16, device=x_c.device)
-    a[:, : 3 * d] = torch.cat([xh, xl, xh], dim=1)
-    a[:, 3 * d : 3 * d + 3] = 1.0
-    return a
+    return tuple(_pad2(t, n, _round_up(d, 16)) for t in split_bf16(x_c.float()))
 
 
 def _distances_plain(a, w_aug, xy):
@@ -224,6 +287,65 @@ def bmu_top2(a, w_aug, xy):
 bmu_top2.launches = 0
 
 
+def bmu_split3_plain(xh, xl, wh, wl, w_sq, xy):
+    """Plain K3: the three products ``xh·wh``, ``xh·wl``, ``xl·wh`` as fp32
+    matmuls of the bf16 values (each product of two bf16 values is exact
+    in f32), summed as ``(hh + hl) + lh``, then ``-2·cross + w_sq`` and the
+    first-index argmin."""
+    xh, xl = xh.float(), xl.float()
+    wh, wl = wh[:, :xy].float(), wl[:, :xy].float()
+    with fp32_matmul():
+        cross = (xh @ wh + xh @ wl) + xl @ wh
+    return first_argmin(-2.0 * cross + w_sq[None, :xy])
+
+
+def bmu_split3(xh, xl, wh, wl, w_sq, xy):
+    """K3: ``(idx, val)`` per row, ``idx`` the first-index argmin over the
+    first ``xy`` columns of ``-2·((xh·wh + xh·wl) + xl·wh) + w_sq`` and
+    ``val`` its f32 value; ``xh, xl`` (N, K) and ``wh, wl`` (K, XY8) bf16,
+    ``w_sq`` (XY,) f32.
+
+    Source note: replaces ``_kernel_split3`` (xpysom_dask_tpu/ops/pallas/
+    bmu.py, mode 'split3'). Three separate bf16 tensor-core products, each
+    accumulated in f32 and summed in the JAX kernel's order, so the mode's
+    documented near-tie behaviour is kept (it is not folded into K1's one
+    K-chain). On the H100 the tensor cores bound it (3·N·XY·K
+    multiply-adds, 5.2e10 per flagship chunk); an instance of K1's kernel
+    template with three accumulator sets: WMMA m16n16k16, 64 rows per
+    block looping over all codebook tiles, shared-memory staging
+    (csrc/bmu.cu)."""
+    _check_operands(xh, wh, xy)
+    _check_operands(xl, wl, xy)
+    if xh.shape != xl.shape or wh.shape != wl.shape:
+        raise ValueError(
+            f"split pairs differ in shape: {tuple(xh.shape)}/{tuple(xl.shape)} and "
+            f"{tuple(wh.shape)}/{tuple(wl.shape)}"
+        )
+    if w_sq.dtype != _F32 or w_sq.dim() != 1 or w_sq.shape[0] < xy or w_sq.device != xh.device:
+        raise ValueError(f"w_sq (XY,) f32 on {xh.device} expected, got {tuple(w_sq.shape)}")
+    if xh.device.type == "cpu":
+        return bmu_split3_plain(xh, xl, wh, wl, w_sq, xy)
+    _check_kernel_layout(xh, wh)
+    _check_kernel_layout(xl, wl)
+    if not w_sq.is_contiguous():
+        raise ValueError("the BMU kernels take contiguous operands")
+    n = xh.shape[0]
+    idx = torch.empty(n, dtype=torch.int32, device=xh.device)
+    val = torch.empty(n, dtype=torch.float32, device=xh.device)
+    lib = build.load_library()
+    rc = lib.xps_bmu_split3(
+        xh.data_ptr(), xl.data_ptr(), wh.data_ptr(), wl.data_ptr(), w_sq.data_ptr(),
+        n, xh.shape[1], xy, wh.shape[1], idx.data_ptr(), val.data_ptr(),
+        torch.cuda.current_stream(xh.device).cuda_stream,
+    )
+    build.check(rc, "bmu_split3")
+    bmu_split3.launches += 1
+    return idx, val
+
+
+bmu_split3.launches = 0
+
+
 def bmu_highest_plain(x, w, w_sq):
     """Plain K4: ``-2·x·wᵀ + ‖w‖²`` with an fp32 matmul (no TF32), then the
     first-index argmin."""
@@ -264,15 +386,75 @@ def center_by_mean(w_flat):
     return c, w_flat - c[None, :]
 
 
+# Margin gate (mode 'margin', as the JAX package's _MARGIN_BOUND): the bf16
+# pass's distance error is at most (2u + u² + Kε_f32)·Σ_d|x_d||2w_d| with
+# u = 2⁻⁸ (the ‖w‖² operand is an exact 3-term split, so only the cross
+# term errs). A winner flip needs err(winner) + err(runner-up) ≥ margin,
+# so rows with margin ≤ 2·2.1u·S are ambiguous; 6u is the gate.
+MARGIN_BOUND = 6.0 * 2.0**-8
+# mode 'margin''s rescue buffer holds this share of a chunk's rows (the JAX
+# package's rescue_frac default)
+RESCUE_FRAC = 0.125
+
+
+def margin_suspects(val, val2, x_c, w_c):
+    """The rows mode ``'margin'`` re-ranks: top-2 margin ``val2 − val`` at
+    most ``MARGIN_BOUND·S`` with ``S = |x_c| @ max_j |2w_c|`` on the
+    centered operands."""
+    with fp32_matmul():
+        s_row = torch.abs(x_c) @ torch.amax(torch.abs(2.0 * w_c), dim=0)
+    return (val2 - val) <= MARGIN_BOUND * s_row
+
+
+def margin_rescue(idx, val, val2, x_c, w_c, w_sq, w_aug, argmin):
+    """Exact re-rank of the bf16 top-2 pass's ambiguous rows (mode
+    ``'margin'``; the JAX package's ``_margin_rescue``).
+
+    ``idx, val, val2``: K2's winner, its value and the runner-up's value
+    on the bf16 operands of the centered samples ``x_c`` (N, D) against
+    the centered codebook ``w_c`` (XY, D) with ``‖w‖²`` operand ``w_sq``
+    (XY,); ``w_aug`` is the packed ``W_aug`` of the same codebook and
+    ``argmin`` K1 or its plain version. The rows of
+    :func:`margin_suspects` are compacted in row order (cumsum positions)
+    into a buffer of capacity ``max(8, ⌈RESCUE_FRAC·N/8⌉·8)`` (at most N)
+    whose unused slots hold the
+    out-of-range dump index N — never 0: a zero-filled tail once wrote row
+    0's stale winner over its rescue — and re-ranked by packed K1. If the
+    buffer would overflow, packed K1 searches every row instead (the one
+    host read of the count per call decides). The returned value is
+    recomputed in exact f32 for every row: ``(idx, val)``."""
+    n, xy = x_c.shape[0], w_c.shape[0]
+    if n == 0:
+        return idx, val
+    suspect = margin_suspects(val, val2, x_c, w_c)
+    cap = min(n, max(8, _round_up(int(n * RESCUE_FRAC), 8)))
+    if int(torch.count_nonzero(suspect)) > cap:
+        idx, _ = argmin(pack_samples(x_c), w_aug, xy)
+    else:
+        pos = torch.cumsum(suspect.to(torch.int32), 0) - 1
+        dest = torch.where(suspect & (pos < cap), pos, cap).long()
+        rows = torch.arange(n, device=x_c.device)
+        # slot ``cap`` takes every non-suspect row and is dropped
+        buf = torch.full((cap + 1,), n, dtype=torch.long, device=x_c.device)
+        buf = buf.scatter_(0, dest, rows)[:cap]
+        idx_sus, _ = argmin(pack_samples(x_c[torch.clamp(buf, max=n - 1)]), w_aug, xy)
+        # the dump index N lands in one extra slot, which is cut off
+        idx = torch.cat([idx, idx.new_zeros(1)]).scatter_(0, buf, idx_sus)[:n]
+    val = -2.0 * torch.sum(x_c * w_c[idx.long()], dim=1) + w_sq[idx.long()]
+    return idx, val
+
+
 class PackedCodebook:
-    """The codebook side of a GEMM-form BMU search (K1/K2 in mode
-    ``'packed'``, K4 in mode ``'highest'``), built once per epoch or
-    scoring call and shared by every chunk.
+    """The codebook side of a GEMM-form BMU search in any precision mode
+    (K1/K2 for ``'packed'``, ``'bf16'``, ``'split2'``; K3 for ``'split3'``;
+    K4 for ``'highest'``; K2 then K1 for ``'margin'``), built once per
+    epoch or scoring call and shared by every chunk.
 
     ``center=True`` subtracts the codebook mean from both sides
     (:func:`center_by_mean`). ``w_sq`` overrides the ``‖w‖²`` operand with
     caller-defined semantics (the JAX package's ``w_sq_raw=True``): cosine
-    and the norm_p expansion pass zeros."""
+    and the norm_p expansion pass zeros, and ``'split2'`` then splits that
+    operand instead of using the rounded codebook's norm."""
 
     def __init__(self, w_flat, mode="packed", *, center=True, w_sq=None):
         if mode not in GEMM_MODES:
@@ -281,38 +463,61 @@ class PackedCodebook:
         self.xy = w_flat.shape[0]
         self.mode = mode
         self.center, w_c = center_by_mean(w_flat) if center else (None, w_flat)
-        w_sq = torch.sum(w_c * w_c, dim=1) if w_sq is None else w_sq.float().reshape(self.xy)
-        if mode == "packed":
-            self.w_aug = pack_codebook(w_c, w_sq)
+        raw = None if w_sq is None else w_sq.float().reshape(self.xy).contiguous()
+        self.w_sq = torch.sum(w_c * w_c, dim=1) if raw is None else raw
+        if mode in _AUG_MODES:
+            self.w_aug = pack_codebook(w_c, raw if mode == "split2" else self.w_sq, mode)
+        elif mode == "split3":
+            self.wh, self.wl = split3_codebook(w_c)
+        elif mode == "margin":
+            self.w_aug = pack_codebook(w_c, self.w_sq, "bf16")
+            self.w_aug_packed = pack_codebook(w_c, self.w_sq, "packed")
+            self.w = w_c
         else:
             self.w = w_c.contiguous()
-            self.w_sq = w_sq.contiguous()
+
+    def _centered(self, x):
+        x = x.float()
+        return x if self.center is None else x - self.center[None, :]
 
     def operands(self, x):
         """The arguments of the mode's kernel (and of its plain version)
         for samples ``x`` (N, D): ``(A, W_aug, xy)`` for
-        ``bmu_argmin``/``bmu_top2`` or ``(x', w, w_sq)`` for
-        ``bmu_highest``."""
-        x = x.float()
-        if self.center is not None:
-            x = x - self.center[None, :]
-        if self.mode == "packed":
-            return pack_samples(x), self.w_aug, self.xy
+        ``bmu_argmin``/``bmu_top2`` (mode ``'margin'``: its bf16 first
+        pass), ``(xh, xl, wh, wl, w_sq, xy)`` for ``bmu_split3`` or
+        ``(x', w, w_sq)`` for ``bmu_highest``."""
+        x = self._centered(x)
+        if self.mode in _AUG_MODES:
+            return pack_samples(x, self.mode), self.w_aug, self.xy
+        if self.mode == "margin":
+            return pack_samples(x, "bf16"), self.w_aug, self.xy
+        if self.mode == "split3":
+            return (*split3_samples(x), self.wh, self.wl, self.w_sq, self.xy)
         return x.contiguous(), self.w, self.w_sq
 
     def argmin(self, x, use_kernels=True):
         """``(idx, val)``: the mode's kernel, or its plain version when
         ``use_kernels`` is False."""
-        if self.mode == "packed":
+        if self.mode == "margin":
+            top2 = bmu_top2 if use_kernels else bmu_top2_plain
+            idx, val, _, val2 = top2(*self.operands(x))
+            return margin_rescue(
+                idx, val, val2, self._centered(x), self.w, self.w_sq, self.w_aug_packed,
+                bmu_argmin if use_kernels else bmu_argmin_plain,
+            )
+        if self.mode in _AUG_MODES:
             fn = bmu_argmin if use_kernels else bmu_argmin_plain
+        elif self.mode == "split3":
+            fn = bmu_split3 if use_kernels else bmu_split3_plain
         else:
             fn = bmu_highest if use_kernels else bmu_highest_plain
         return fn(*self.operands(x))
 
     def top2(self, x, use_kernels=True):
-        """K2's ``(idx, val, idx2, val2)``; mode ``'packed'`` only."""
-        if self.mode != "packed":
-            raise ValueError("the top-2 search runs in mode 'packed'")
+        """K2's ``(idx, val, idx2, val2)``; modes ``'packed'`` and
+        ``'bf16'``."""
+        if self.mode not in ("packed", "bf16"):
+            raise ValueError("the top-2 search runs in mode 'packed' or 'bf16'")
         fn = bmu_top2 if use_kernels else bmu_top2_plain
         return fn(*self.operands(x))
 
@@ -392,5 +597,6 @@ class NormPEvenCodebook:
 def bmu_norm_p_even(x, w_flat, p=2, mode="highest", use_kernels=True):
     """``(idx, dist_p)`` under the even-p norm_p activation: the first-index
     argmin of ``Σ_d (x_d − w_d)^p`` and that distance (the p-th power),
-    through K4 (mode ``'highest'``) or K1 (``'packed'``)."""
+    through K4 (mode ``'highest'``) or the kernel of another mode (every
+    mode but ``'margin'``)."""
     return NormPEvenCodebook(w_flat, p, mode).argmin(x, use_kernels)

@@ -24,7 +24,7 @@ __all__ = ["load_library", "build_dir", "SOURCES", "last_build_seconds"]
 
 _PKG = Path(__file__).resolve().parents[2]
 _CSRC = _PKG / "csrc"
-SOURCES = ("bmu.cu", "stats.cu", "highest.cu", "elementwise.cu")
+SOURCES = ("bmu.cu", "stats.cu", "highest.cu", "elementwise.cu", "manhattan.cu")
 HEADERS = ("tile_argmin.cuh",)
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -42,6 +42,8 @@ _SIGNATURES = {
     "xps_bmu_manhattan": (_P, _P, _I, _I, _I, _P, _P, _P),
     "xps_bmu_lp_odd": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
     "xps_bmu_lp_frac": (_P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P),
+    "xps_bmu_split3": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "xps_manhattan_distance": (_P, _P, _I, _I, _I, _P, _P),
 }
 
 _lock = threading.Lock()

@@ -7,12 +7,14 @@ every kernel factors as ``H = Σ_k Axᵏ ⊗ Ayᵏ`` with small ``(X, X)`` and
 of a pass over a materialized ``(N, X, Y)`` tensor.
 
 Served here: the rectangular branch (gaussian, mexican_hat, bubble,
-triangle, with or without compact support). The hexagonal per-parity-
-class operator is ROADMAP Queue 1 item 6.
+triangle, with or without compact support) and the hexagonal branch
+(bubble on the integer grid; gaussian and mexican_hat as per-parity-class
+separable sums: 3 terms and 9).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .distances import fp32_matmul
@@ -46,12 +48,11 @@ def neighborhood_operator(
 
     ``neigx``/``neigy`` are float32 grid index vectors; ``sigma`` is a
     float32 scalar tensor (or float)."""
-    if topology == "hexagonal":
-        raise NotImplementedError(
-            "the hexagonal neighborhood operator is not ported yet "
-            "(ROADMAP Queue 1 item 6)"
-        )
-    if topology != "rectangular":
+    if topology == "hexagonal" and name != "bubble":
+        return _hexagonal_operator(name, neigx, neigy, std_coeff, compact_support, sigma)
+    # bubble stays on the integer grid under hex topology, as in the
+    # reference: the rectangular factors
+    if topology not in ("rectangular", "hexagonal"):
         raise ValueError(f"unknown topology {topology!r}")
     nx = neigx[None, :].to(_F32)
     cx = neigx[:, None].to(_F32)
@@ -85,6 +86,66 @@ def neighborhood_operator(
         v = 2.0 / d * py
         return ("sum_separable", [(ex, ey), (-ex * u, ey), (ex, -ey * v)])
     raise ValueError(f"unknown neighborhood {name!r}")
+
+
+def _hexagonal_operator(name, neigx, neigy, std_coeff, compact_support, sigma):
+    """The hexagonal branch of gaussian and mexican hat. The hex offset (``grid_coordinates``) shifts
+    the x coordinate of alternate rows by 0.5, so for center (a, b) and
+    node (i, j): ``Δx = (i − a) − 0.5·(off(j) − off(b))``, ``Δy = j − b``,
+    with ``off(r) ∈ {0, 1}`` marking the shifted rows. ``δ = off(j) −
+    off(b)`` takes three values, each fixed by the two rows' parity
+    classes, so the generic kernels factor exactly into
+    ``Σ_δ AXδ ⊗ (Ay ⊙ Mδ)``: three class-masked separable terms for
+    gaussian, nine for mexican hat."""
+    if name not in ("gaussian", "mexican_hat"):
+        raise ValueError(f"{name!r} neighborhood not available for hexagonal topology")
+    d = 2.0 * std_coeff**2 * sigma**2
+    y_dim = int(neigy.shape[0])
+    # off[r] = 1 where grid_coordinates' xx[::-2] shifted row r: rows
+    # counted from the END, i.e. (Y − 1 − r) even
+    off = torch.from_numpy(((y_dim - 1 - np.arange(y_dim)) % 2 == 0).astype(np.float32))
+    off = off.to(neigy.device)
+    m_same = off[:, None] * off[None, :] + (1.0 - off[:, None]) * (1.0 - off[None, :])
+    m_p = (1.0 - off[:, None]) * off[None, :]  # center class 0 → node 1
+    m_m = off[:, None] * (1.0 - off[None, :])  # center class 1 → node 0
+    masks = (m_same, m_p, m_m)
+
+    ii = neigx[None, :].to(_F32)  # node x-index i
+    aa = neigx[:, None].to(_F32)  # center x-index a
+    dxs = (ii - aa, ii - aa - 0.5, ii - aa + 0.5)  # δ ∈ {0, +1, −1}
+    dy = neigy[None, :].to(_F32) - neigy[:, None].to(_F32)
+
+    def box(dv):
+        return ((dv > -sigma) & (dv < sigma)).to(_F32)
+
+    if name == "gaussian":
+        ay = torch.exp(-torch.square(dy) / d)
+        if compact_support:
+            ay = ay * box(dy)
+        terms = []
+        for dx, mask in zip(dxs, masks):
+            ax = torch.exp(-torch.square(dx) / d)
+            if compact_support:
+                ax = ax * box(dx)
+            terms.append((ax, ay * mask))
+        return ("sum_separable", terms)
+
+    # mexican hat: H = e^{−p/d}(1 − 2p/d) = Ex⊗Ey − (Ex·u)⊗Ey − Ex⊗(Ey·v)
+    # per class, with p = px + py (each axis masked like the generic form)
+    py = torch.square(dy)
+    if compact_support:
+        py = py * box(dy)
+    ey = torch.exp(-py / d)
+    v = 2.0 / d * py
+    terms = []
+    for dx, mask in zip(dxs, masks):
+        px = torch.square(dx)
+        if compact_support:
+            px = px * box(dx)
+        ex = torch.exp(-px / d)
+        u = 2.0 / d * px
+        terms.extend([(ex, ey * mask), (-ex * u, ey * mask), (ex, -(ey * v) * mask)])
+    return ("sum_separable", terms)
 
 
 def apply_operator(op, s_flat, cnt):
