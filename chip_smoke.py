@@ -45,7 +45,17 @@ Phases (each prints lines; any failure raises and exits non-zero):
      its parts and the host read of the suspect count are timed;
  12. ``activate`` under manhattan on 8192 samples x 16384 nodes: K8
      launches and the matrix equals the plain versions' bit for bit; K8
-     timed at activate's own chunk.
+     timed at activate's own chunk;
+ 13. the wide-D search (K1-kb): ``PackedCodebook.argmin(kblock=)`` at
+     (16384, 16384, 512) and (16384, 4096, 1024), modes packed and bf16,
+     kblock 512 and 1024, winners and values against the plain version and
+     K1, a ragged shape, a tie fixture across slabs, the validation errors,
+     CUDA-event timings of K1-kb, K1 and the plain version;
+ 14. the fused-statistics epoch (K10): two epochs of the flagship
+     (128x128x64, 2^19 samples, chunk 16384) whose statistics come from
+     K10, bitwise equal to the same epochs from K1 + K9 and to a second
+     run; K10 bitwise against K1 + K9 on a uniform, a ragged and the
+     skewed first chunk, timed per chunk against K1 + K9.
 Each kernel's record carries its launches on the path that runs it, its
 error against the plain version, its time, the plain version's, the time
 of one PyTorch library call that computes the same function where there
@@ -56,6 +66,7 @@ The line before the last is the kernels' JSON record; the last line is
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -103,7 +114,13 @@ REPLACES = {
                    "xpysom_dask_tpu/ops/pallas/bmu.py:212"),
     "manhattan_distance": ("xpysom_dask_tpu_torch/csrc/manhattan.cu",
                            "xpysom_dask_tpu/ops/pallas/manhattan.py:32"),
+    "bmu_argmin_kb": ("xpysom_dask_tpu_torch/csrc/bmu.cu",
+                      "xpysom_dask_tpu/ops/pallas/bmu.py:292"),
+    "bmu_stats_fused": ("xpysom_dask_tpu_torch/csrc/fused_stats.cu",
+                        "xpysom_dask_tpu/ops/pallas/fused_stats.py:75"),
 }
+# the wide-D shapes of tools/r4_kblock.py: (samples, nodes, D)
+WIDE_SHAPES = ((16384, 16384, 512), (16384, 4096, 1024))
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet;
 # the special-function rate from the Hopper white paper: 16 units per SM,
@@ -629,20 +646,27 @@ def _elementwise_seconds(p, n, xy, d):
     return max(terms * (2 + m) / FP32_INSTR, terms * sfu / SFU_RATE)
 
 
-def _check_operand_ties(name, rows, a, w_aug, got, want):
-    """Indices that differ between two f32 sums of the same bf16 operands
-    must tie to within the f32 accumulation bound: the float64 values of
-    A·W_aug at the two columns within 2·K·2^-24·Σ_k |A_k||W_k|."""
+def _not_operand_ties(rows, a, w_aug, got, want):
+    """The rows among ``rows`` whose two indices do not tie as two f32 sums
+    of the same bf16 operands: the float64 values of A·W_aug at the two
+    columns further apart than 2·K·2^-24·Σ_k |A_k||W_k|."""
     k = a.shape[1]
-    bad = 0
+    bad = []
     for r in rows:
         cols = [int(got[r]), int(want[r])]
         ar = a[r].double().cpu().numpy()
         wc = w_aug[:, cols].double().cpu().numpy()
         d = ar @ wc
-        tol = 2 * k * F32_U * (np.abs(ar) @ np.abs(wc)).max()
-        bad += abs(d[0] - d[1]) > tol
-    require(bad == 0, f"{name}: {bad} of {len(rows)} index differences are not f32 ties")
+        if abs(d[0] - d[1]) > 2 * k * F32_U * (np.abs(ar) @ np.abs(wc)).max():
+            bad.append(r)
+    return bad
+
+
+def _check_operand_ties(name, rows, a, w_aug, got, want):
+    """Indices that differ between two f32 sums of the same bf16 operands
+    must tie to within the f32 accumulation bound."""
+    bad = _not_operand_ties(rows, a, w_aug, got, want)
+    require(not bad, f"{name}: {len(bad)} of {len(rows)} index differences are not f32 ties")
 
 
 def compare_mode(torch, kb, name, x, w, mode):
@@ -1263,6 +1287,281 @@ def phase_activate(torch, card):
     return counts
 
 
+def _kb_flips(name, rows, mode, xc, wc, a, w_aug, got, want):
+    """Winners that differ between two sums of the same operands must tie
+    as f32 sums of those operands or, under packed, be float64 near-ties
+    of the centered data within the packed floor."""
+    bad = _not_operand_ties(rows, a, w_aug, got, want)
+    if mode == "packed":
+        _check_near_ties(name, bad, xc, wc, got, want)
+    else:
+        require(not bad, f"{name}: {len(bad)} of {len(rows)} index differences are not ties")
+
+
+def phase_kblock(torch, card):
+    """The wide-D search through ``PackedCodebook.argmin(kblock=)`` at the
+    shapes of tools/r4_kblock.py, modes packed and bf16, kblock 512 and
+    1024 (the counters read around those calls); then K1-kb against its
+    plain version and K1 on the same operands, a ragged shape, a tie
+    fixture across slabs, the validation errors, and CUDA-event timings.
+    Returns the launches, the max value error, the record's timings and
+    bound (packed, 16384 x 16384 x 512, kblock 512)."""
+    from xpysom_dask_tpu_torch.ops import kernels
+    from xpysom_dask_tpu_torch.ops.kernels import bmu as kb
+
+    rng = np.random.RandomState(8)
+    data = {s: (rng.rand(s[0], s[2]).astype(np.float32), rng.rand(s[1], s[2]).astype(np.float32))
+            for s in WIDE_SHAPES}
+    cases = [(s, mode, kbk) for s in WIDE_SHAPES for mode in ("packed", "bf16")
+             for kbk in (512, 1024)]
+    dev = {s: (torch.from_numpy(x).cuda(), torch.from_numpy(w).cuda())
+           for s, (x, w) in data.items()}
+    cbs = {(s, mode): kb.PackedCodebook(dev[s][1], mode) for s in WIDE_SHAPES
+           for mode in ("packed", "bf16")}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = {c: cbs[c[:2]].argmin(dev[c[0]][0], kblock=c[2]) for c in cases}
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    print(f"wide-D path launch counts: {counts}")
+    require(counts["bmu_argmin_kb"] == len(cases), "K1-kb not launched on every call")
+    require(counts["bmu_argmin"] == 0, "the kblock search fell back to K1")
+
+    err, record = 0.0, None
+    for (shape, mode, kbk) in cases:
+        n, xy, d = shape
+        x, w = data[shape]
+        cb = cbs[(shape, mode)]
+        ops = cb.operands(dev[shape][0])
+        a, w_aug, _ = ops
+        i_k, v_k = out[(shape, mode, kbk)]
+        i_p, v_p = kb.bmu_argmin_kb_plain(*ops, kbk)
+        i_1, v_1 = kb.bmu_argmin(*ops)
+        torch.cuda.synchronize()
+        i_k, v_k, i_p, v_p, i_1 = (u.cpu().numpy() for u in (i_k, v_k, i_p, v_p, i_1))
+        require(i_k.shape == (n,) and np.isfinite(v_k).all(), f"K1-kb {shape}: malformed")
+        require(((i_k >= 0) & (i_k < xy)).all(), f"K1-kb {shape}: index out of range")
+        center = cb.center.cpu().numpy()
+        xc = (x - center).astype(np.float64)
+        wc = (w - center).astype(np.float64)
+        name = f"K1-kb {mode} kblock={kbk} {n}x{xy} D={d}"
+        for label, other in (("plain", i_p), ("K1", i_1)):
+            diff = np.nonzero(i_k != other)[0]
+            _kb_flips(f"{name} vs {label}", diff, mode, xc, wc, a, w_aug, i_k, other)
+            print(f"{name}: {len(diff)} tie index differences of {n} against {label}")
+        mag = np.abs(xc) @ np.abs(2 * wc).max(0) + (wc * wc).sum(1).max()
+        same = i_k == i_p
+        require((np.abs(v_k - v_p) <= VAL_RTOL * (1.0 + mag))[same].all(),
+                f"{name}: values disagree with the plain version")
+        e = float(np.abs(v_k - v_p)[same].max())
+        err = max(err, e)
+        t = (cuda_ms(torch, lambda: kb.bmu_argmin_kb(*ops, kbk)),
+             cuda_ms(torch, lambda: kb.bmu_argmin(*ops)),
+             cuda_ms(torch, lambda: kb.bmu_argmin_kb_plain(*ops, kbk), reps=3, warmup=1))
+        k = a.shape[1]
+        b = bound(2.0 * n * xy * k / BF16_FLOPS, 2 * (n * k + k * w_aug.shape[1]) + 8 * n)
+        print(f"time {name} (K = {k}, padded to {-(-k // kbk) * kbk}): K1-kb {t[0]:.4f} ms, "
+              f"K1 {t[1]:.4f} ms, plain {t[2]:.4f} ms, bound {b[0]:.4f} ms by {b[1]}; "
+              f"max|dv| {e:.3g} (CUDA events; {card})")
+        if record is None:
+            record = ((t[0], t[2], None), b)
+        del i_p, v_p
+
+    # ragged: K = 3·200 + 3 = 603 in five 128-deep slabs, 91 nodes
+    xr = rng.rand(1000, 200).astype(np.float32)
+    wr = (rng.rand(91, 200) * 2 - 1).astype(np.float32)
+    for mode in ("packed", "bf16"):
+        cb = kb.PackedCodebook(torch.from_numpy(wr).cuda(), mode)
+        ops = cb.operands(torch.from_numpy(xr).cuda())
+        i_k, v_k = cb.argmin(torch.from_numpy(xr).cuda(), kblock=128)
+        i_p, v_p = kb.bmu_argmin_kb_plain(*ops, 128)
+        diff = np.nonzero((i_k != i_p).cpu().numpy())[0]
+        center = cb.center.cpu().numpy()
+        _kb_flips(f"K1-kb {mode} ragged", diff, mode, (xr - center).astype(np.float64),
+                  (wr - center).astype(np.float64), ops[0], ops[1], i_k.cpu().numpy(),
+                  i_p.cpu().numpy())
+        e = float((v_k - v_p).abs()[i_k == i_p].max())
+        err = max(err, e)
+        print(f"K1-kb {mode} ragged 1000x91 D=200 kblock=128: {len(diff)} tie differences, "
+              f"max|dv| {e:.3g}")
+    # tie fixture across slabs: duplicated codebook rows 7 and 1500 whose
+    # distance to sample 1 sums features 0 (slab 0) and 299 (slab 2 of
+    # 128-deep slabs)
+    xt = np.zeros((4, 300), np.float32)
+    xt[1, [0, 299]] = 5
+    wt = np.zeros((2100, 300), np.float32)
+    wt[[7, 1500]] = xt[1]
+    for mode in ("packed", "bf16"):
+        i, _ = kb.PackedCodebook(torch.from_numpy(wt).cuda(), mode).argmin(
+            torch.from_numpy(xt).cuda(), kblock=128)
+        require(i.cpu().tolist() == [0, 7, 0, 0], f"K1-kb {mode} tie fixture: {i.cpu().tolist()}")
+    print("K1-kb: tie fixture across slabs keeps the first index (packed, bf16)")
+    # the JAX package's refusals, in its words
+    cb = kb.PackedCodebook(dev[WIDE_SHAPES[0]][1][:64], "highest")
+    for fn, pattern in ((lambda: cb.argmin(dev[WIDE_SHAPES[0]][0][:8], kblock=128),
+                         "kblock.*requires mode"),
+                        (lambda: cbs[(WIDE_SHAPES[0], "packed")].argmin(
+                            dev[WIDE_SHAPES[0]][0][:8], kblock=100), "multiple of 128"),
+                        (lambda: cbs[(WIDE_SHAPES[0], "packed")].top2(
+                            dev[WIDE_SHAPES[0]][0][:8], kblock=128), "top2")):
+        try:
+            fn()
+        except ValueError as exc:
+            require(re.search(pattern, str(exc)), f"K1-kb validation: {exc}")
+        else:
+            raise RuntimeError(f"K1-kb validation: no error for {pattern!r}")
+    print("K1-kb: the three validation errors match the JAX package's")
+    del out, dev, cbs
+    torch.cuda.empty_cache()
+    return counts["bmu_argmin_kb"], err, record[0], record[1]
+
+
+def _fused_vs_k1_k9(torch, name, x, w, m):
+    """K10 on one chunk against K1 + K9 on the same uncentered packed
+    operands (winners and statistics bitwise) and against itself; returns
+    the operands."""
+    from xpysom_dask_tpu_torch.ops.kernels import bmu as kb
+    from xpysom_dask_tpu_torch.ops.kernels import fused_stats as kf
+    from xpysom_dask_tpu_torch.ops.kernels import stats as ks
+
+    cb = kb.PackedCodebook(w, "packed", center=False)
+    i_f, acc = kf.bmu_stats_fused(x, cb, m)
+    i_f2, acc2 = kf.bmu_stats_fused(x, cb, m)
+    i_1, _ = kb.bmu_argmin(*cb.operands(x))
+    acc9 = ks.scatter_stats(x, m, i_1, cb.xy)
+    torch.cuda.synchronize()
+    require(torch.equal(i_f, i_1), f"{name}: K10 winners differ from K1's")
+    require(torch.equal(acc.view(torch.int32), acc9.view(torch.int32)),
+            f"{name}: K10 statistics differ from K9's in bits")
+    require(torch.equal(i_f2, i_f) and torch.equal(acc2.view(torch.int32), acc.view(torch.int32)),
+            f"{name}: two K10 launches differ")
+    require(float(acc[:, -1].sum()) == float(m.sum()), f"{name}: K10 counts lost rows")
+    run = int(torch.bincount(i_f.long()).max())
+    print(f"{name}: K10 winners equal K1's, statistics equal K9's bit for bit, two launches "
+          f"equal; longest run {run} rows")
+    return cb, run
+
+
+def phase_fused_epoch(torch, card):
+    """Two flagship epochs whose statistics come from K10 (the counters
+    read around them), bitwise against the same epochs from K1 + K9 and a
+    second run; K10 against K1 + K9 on a uniform, a ragged and the skewed
+    first chunk, with per-chunk and per-epoch times. Returns the launches,
+    the error, the record's timings and bound."""
+    from xpysom_dask_tpu_torch import XPySom, core
+    from xpysom_dask_tpu_torch.ops import kernels
+    from xpysom_dask_tpu_torch.ops.kernels import bmu as kb
+    from xpysom_dask_tpu_torch.ops.kernels import fused_stats as kf
+    from xpysom_dask_tpu_torch.ops.kernels import stats as ks
+
+    f = FLAGSHIP
+    d, xy = f["d"], f["x"] * f["y"]
+    kw = dict(sigma=64, sigmaN=1, learning_rate=0.5, learning_rateN=0.01, random_seed=0)
+    som = XPySom(f["x"], f["y"], d, **kw)
+    spec = som._spec
+    data = np.random.RandomState(0).rand(f["n"], d).astype(np.float32)
+    chunks, mask, _ = core.chunk_data(data, f["chunk"])
+    chunks, mask = torch.from_numpy(chunks).cuda(), torch.from_numpy(mask).cuda()
+    w0 = som._device_weights().reshape(xy, d).contiguous()
+
+    def epochs(fused, w):
+        ws = []
+        for t in range(2):
+            eta, sig = core._decays(spec, t, 10, w.device)
+            s, cnt = kf.epoch_stats(w, chunks, mask, fused=fused)
+            w = core._update_from_stats(spec, w, s, cnt, eta, sig)
+            ws.append(w)
+        return ws
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    fused = epochs(True, w0)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    print(f"fused-stats path launch counts: {counts}")
+    n_chunks = chunks.shape[0]
+    require(counts["bmu_stats_fused"] == 2 * n_chunks, "K10 not launched on every chunk")
+    require(counts["bmu_argmin"] == 0 and counts["scatter_stats"] == 0,
+            "the fused path launched K1 or K9")
+    again = epochs(True, w0)
+    split = epochs(False, w0)
+    torch.cuda.synchronize()
+    for t in range(2):
+        require(torch.isfinite(fused[t]).all(), f"fused epoch {t}: codebook not finite")
+        require(torch.equal(fused[t].view(torch.int32), again[t].view(torch.int32)),
+                f"fused epoch {t}: a second run changed the codebook bits")
+        require(torch.equal(fused[t].view(torch.int32), split[t].view(torch.int32)),
+                f"fused epoch {t}: codebook differs from the K1 + K9 epoch in bits")
+    qe = [float(core.make_quantization_stats_fn(spec)(w.reshape(f["x"], f["y"], d), chunks,
+                                                      mask)[0]) / f["n"]
+          for w in (w0, fused[1])]
+    require(qe[1] < qe[0], f"fused epochs: QE did not fall {qe}")
+    print(f"fused-stats path: 2 epochs bitwise equal to the K1 + K9 epochs and to a second "
+          f"run; QE {qe[0]!r} -> {qe[1]!r}")
+
+    # per chunk: uniform, ragged, and the first chunk under the initial
+    # codebook (early training's skew)
+    rng = np.random.RandomState(9)
+    xu = torch.from_numpy(rng.rand(f["chunk"], d).astype(np.float32)).cuda()
+    wu = torch.from_numpy(rng.rand(xy, d).astype(np.float32)).cuda()
+    mu = torch.from_numpy((rng.rand(f["chunk"]) > 0.05).astype(np.float32)).cuda()
+    cb_u, _ = _fused_vs_k1_k9(torch, "K10 flagship chunk, uniform codebook", xu, wu, mu)
+    _fused_vs_k1_k9(torch, "K10 ragged 1000x91 D=5",
+                    torch.from_numpy(rng.rand(1000, 5).astype(np.float32)).cuda(),
+                    torch.from_numpy((rng.rand(91, 5) * 2 - 1).astype(np.float32)).cuda(),
+                    torch.from_numpy((rng.rand(1000) > 0.2).astype(np.float32)).cuda())
+    cb_s, run = _fused_vs_k1_k9(torch, "K10 skewed chunk (first chunk, initial codebook)",
+                                chunks[0], w0, mask[0])
+
+    # against the plain version on the card: winners up to near-ties of the
+    # uncentered packed operands, statistics K9's plain ones on K10's winners
+    i_f, acc = kf.bmu_stats_fused(xu, cb_u, mu)
+    i_p, _ = kf.bmu_stats_fused_plain(xu, cb_u, mu)
+    torch.cuda.synchronize()
+    diff = np.nonzero((i_f != i_p).cpu().numpy())[0]
+    a_u, w_aug_u, _ = cb_u.operands(xu)
+    _check_operand_ties("K10 vs plain", diff, a_u, w_aug_u, i_f.cpu().numpy(), i_p.cpu().numpy())
+    require(torch.equal(acc.view(torch.int32),
+                        ks.scatter_stats_plain(xu, mu, i_f, xy).view(torch.int32)),
+            "K10 statistics differ from the plain scatter on its winners")
+    print(f"K10 vs plain: {len(diff)} tie winner differences of {f['chunk']}; statistics "
+          "equal the plain scatter's on K10's winners bit for bit")
+
+    def k1_k9(cb, x, m):
+        i, _ = kb.bmu_argmin(*cb.operands(x))
+        return ks.scatter_stats(x, m, i, xy)
+
+    timings = {}
+    for label, (cb, x, m) in (("uniform", (cb_u, xu, mu)),
+                              (f"skewed (longest run {run})", (cb_s, chunks[0], mask[0]))):
+        i, _ = kb.bmu_argmin(*cb.operands(x))
+        t = (cuda_ms(torch, lambda: kf.bmu_stats_fused(x, cb, m)),
+             cuda_ms(torch, lambda: kf.bmu_stats_fused_plain(x, cb, m), reps=3, warmup=1),
+             cuda_ms(torch, lambda: k1_k9(cb, x, m)),
+             cuda_ms(torch, lambda: kb.bmu_argmin(*cb.operands(x))),
+             cuda_ms(torch, lambda: ks.scatter_stats(x, m, i, xy)))
+        timings[label] = t
+        print(f"time K10 {label} chunk (each with the samples' packing): fused {t[0]:.4f} ms, "
+              f"plain {t[1]:.4f} ms, K1 + K9 {t[2]:.4f} ms, of which K1 {t[3]:.4f} ms and K9 "
+              f"{t[4]:.4f} ms (CUDA events; {card})")
+    for fused_flag in (True, False, True, False):
+        ms = cuda_ms(torch, lambda: kf.epoch_stats(w0, chunks, mask, fused=fused_flag), reps=3,
+                     warmup=1)
+        print(f"time epoch statistics under the initial codebook ({n_chunks} chunks): "
+              f"{'K10' if fused_flag else 'K1 + K9'} {ms:.3f} ms (CUDA events; {card})")
+    ms = cuda_ms(torch, lambda: kf.epoch_stats(fused[0], chunks, mask), reps=3, warmup=1)
+    ms9 = cuda_ms(torch, lambda: kf.epoch_stats(fused[0], chunks, mask, fused=False), reps=3,
+                  warmup=1)
+    print(f"time epoch statistics under the codebook after one epoch: K10 {ms:.3f} ms, "
+          f"K1 + K9 {ms9:.3f} ms (CUDA events; {card})")
+
+    n, k = a_u.shape
+    nbytes = 2 * (n * k + k * w_aug_u.shape[1]) + 4 * (n * d + 2 * n + xy * (d + 1))
+    t = timings["uniform"]
+    return counts["bmu_stats_fused"], 0.0, (t[0], t[1], None), \
+        bound(2.0 * n * xy * k / BF16_FLOPS, nbytes)
+
+
 def main():
     import torch
 
@@ -1301,6 +1600,8 @@ def main():
         launches[name] = short[name]
     phase_margin_compact(torch, smi)
     launches["manhattan_distance"] = phase_activate(torch, smi)["manhattan_distance"]
+    for name, phase in (("bmu_argmin_kb", phase_kblock), ("bmu_stats_fused", phase_fused_epoch)):
+        launches[name], errs[name], timings[name], bounds[name] = phase(torch, smi)
     require("jax" not in sys.modules, "JAX was imported")
 
     record = {

@@ -191,10 +191,13 @@ def test_launch_counters_stay_zero_on_cpu():
     ke.bmu_norm_p_frac(x, w, 1.5)
     kb.PackedCodebook(w, "split3").argmin(x)
     kernels.manhattan_distance(x, w)
+    cb.argmin(x, kblock=128)
+    kernels.bmu_stats_fused(x, w, torch.ones(50))
     assert kernels.launch_counts() == {name: 0 for name in kernels.KERNELS}
     assert set(kernels.KERNELS) == {
         "bmu_argmin", "bmu_top2", "scatter_stats", "bmu_highest", "bmu_manhattan",
         "bmu_norm_p_odd", "bmu_norm_p_frac", "bmu_split3", "manhattan_distance",
+        "bmu_argmin_kb", "bmu_stats_fused",
     }
 
 
@@ -236,9 +239,9 @@ def test_kernel_build_is_lazy():
 
     assert build._lib is None
     assert set(build.SOURCES) == {
-        "bmu.cu", "stats.cu", "highest.cu", "elementwise.cu", "manhattan.cu"
+        "bmu.cu", "stats.cu", "highest.cu", "elementwise.cu", "manhattan.cu", "fused_stats.cu"
     }
-    assert build.HEADERS == ("tile_argmin.cuh",)
+    assert build.HEADERS == ("tile_argmin.cuh", "gemm_bmu.cuh")
     csrc = Path(kb.__file__).resolve().parents[2] / "csrc"
     for name in build.SOURCES + build.HEADERS:
         assert (csrc / name).is_file()

@@ -1,5 +1,6 @@
 """GEMM-form BMU searches: operand packing for every precision mode, the
-K1/K2 (packed, bf16, split2), K3 (split3) and K4 (highest) wrappers with
+K1/K2 (packed, bf16, split2), K1-kb (packed, bf16; K summed in slabs), K3
+(split3) and K4 (highest) wrappers with
 their plain PyTorch versions, mode ``margin``'s rescue around K2 and K1,
 and the cosine and even-p norm_p glue that rides them.
 
@@ -37,12 +38,15 @@ the caller's distance is not euclidean (cosine and the norm_p expansion
 pass zero), and the packing. ``NormPEvenCodebook`` expands both sides and
 searches through a ``PackedCodebook``.
 
-The kernels: K1 ``bmu_argmin`` replaces ``_kernel_gemm_argmin``, K2
+The kernels: K1 ``bmu_argmin`` replaces ``_kernel_gemm_argmin``, K1-kb
+``bmu_argmin_kb`` replaces ``_kernel_gemm_argmin_kb`` (K1 with K summed
+slab by slab, reached through ``PackedCodebook.argmin(kblock=)``), K2
 ``bmu_top2`` replaces ``_kernel_gemm_top2`` and K3 ``bmu_split3`` replaces
-``_kernel_split3`` (three instances of one template in ``csrc/bmu.cu``); K4
-``bmu_highest`` replaces ``_kernel_highest`` (``csrc/highest.cu``). On a
-CPU tensor each wrapper runs its plain version; on a CUDA tensor it
-launches its kernel or raises.
+``_kernel_split3`` (four instances of one template, ``csrc/gemm_bmu.cuh``,
+launched from ``csrc/bmu.cu``); K4 ``bmu_highest`` replaces
+``_kernel_highest`` (``csrc/highest.cu``). On a CPU tensor each wrapper
+runs its plain version; on a CUDA tensor it launches its kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -62,6 +66,8 @@ __all__ = [
     "split3_samples",
     "bmu_argmin",
     "bmu_argmin_plain",
+    "bmu_argmin_kb",
+    "bmu_argmin_kb_plain",
     "bmu_top2",
     "bmu_top2_plain",
     "bmu_split3",
@@ -254,6 +260,78 @@ def bmu_argmin(a, w_aug, xy):
 
 
 bmu_argmin.launches = 0
+
+# the modes whose operands K1-kb takes (the JAX package's kblock rule)
+_KB_MODES = ("packed", "bf16")
+
+
+def _check_kblock_mode(mode, kblock):
+    """The JAX package's refusal of ``kblock`` outside its modes."""
+    if kblock is not None and mode not in _KB_MODES:
+        raise ValueError("kblock (the K-blocked wide-D candidate) requires mode 'packed' or 'bf16'")
+
+
+def _check_kblock_depth(kblock):
+    if not isinstance(kblock, int) or kblock % 128 or kblock <= 0:
+        raise ValueError(f"kblock={kblock} must be a positive multiple of 128")
+
+
+def _pad_k(a, w_aug, kblock):
+    """``A`` and ``W_aug`` with K zero-padded to a multiple of ``kblock``
+    (zero columns and rows add exact zeros to every slab)."""
+    extra = _round_up(a.shape[1], kblock) - a.shape[1]
+    if not extra:
+        return a, w_aug
+    return (torch.nn.functional.pad(a, (0, extra)),
+            torch.nn.functional.pad(w_aug, (0, 0, 0, extra)))
+
+
+def bmu_argmin_kb_plain(a, w_aug, xy, kblock):
+    """Plain K1-kb: K zero-padded to a multiple of ``kblock``, each slab's
+    product in fp32 added in slab order into a sum that starts from 0.0
+    (the Pallas kernel's ``d_acc += dot(a_k, w_k)``), then the first-index
+    argmin."""
+    a, w_aug = _pad_k(a, w_aug, kblock)
+    d = torch.zeros((a.shape[0], xy), dtype=_F32, device=a.device)
+    with fp32_matmul():
+        for k0 in range(0, a.shape[1], kblock):
+            d += a[:, k0 : k0 + kblock].float() @ w_aug[k0 : k0 + kblock, :xy].float()
+    return first_argmin(d)
+
+
+def bmu_argmin_kb(a, w_aug, xy, kblock):
+    """K1-kb: K1's ``(idx, val)`` with the K axis summed in slabs of
+    ``kblock`` (a positive multiple of 128; K is zero-padded to a multiple
+    of it, as the JAX package pads).
+
+    Source note: replaces ``_kernel_gemm_argmin_kb`` (xpysom_dask_tpu/ops/
+    pallas/bmu.py), the K-blocked wide-D candidate, which cut VMEM's
+    per-step working set on the TPU. K1's loop over 32-deep staged chunks
+    already bounds the working set on the H100, so the kernel is K1's
+    template with a second fragment set: each slab accumulates into it,
+    then it is added into the running sum with ``__fadd_rn`` and zeroed,
+    the Pallas kernel's association. The tensor cores bound it as K1
+    (2·N·XY·K operations of the unpadded augmented depth; csrc/
+    gemm_bmu.cuh, instance KBLOCKED)."""
+    _check_operands(a, w_aug, xy)
+    _check_kblock_depth(kblock)
+    a, w_aug = _pad_k(a, w_aug, kblock)
+    if a.device.type == "cpu":
+        return bmu_argmin_kb_plain(a, w_aug, xy, kblock)
+    _check_kernel_layout(a, w_aug)
+    n = a.shape[0]
+    idx = torch.empty(n, dtype=torch.int32, device=a.device)
+    val = torch.empty(n, dtype=torch.float32, device=a.device)
+    rc = build.load_library().xps_bmu_argmin_kb(
+        a.data_ptr(), w_aug.data_ptr(), n, a.shape[1], xy, w_aug.shape[1], kblock,
+        idx.data_ptr(), val.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream,
+    )
+    build.check(rc, "bmu_argmin_kb")
+    bmu_argmin_kb.launches += 1
+    return idx, val
+
+
+bmu_argmin_kb.launches = 0
 
 
 def bmu_top2(a, w_aug, xy):
@@ -495,9 +573,17 @@ class PackedCodebook:
             return (*split3_samples(x), self.wh, self.wl, self.w_sq, self.xy)
         return x.contiguous(), self.w, self.w_sq
 
-    def argmin(self, x, use_kernels=True):
+    def argmin(self, x, use_kernels=True, kblock=None):
         """``(idx, val)``: the mode's kernel, or its plain version when
-        ``use_kernels`` is False."""
+        ``use_kernels`` is False. ``kblock`` (modes ``'packed'`` and
+        ``'bf16'``) sums K in slabs of that depth through K1-kb, the
+        counterpart of ``bmu_euclidean(kblock=)``; no training or scoring
+        route sets it."""
+        _check_kblock_mode(self.mode, kblock)
+        if kblock is not None:
+            _check_kblock_depth(kblock)
+            fn = bmu_argmin_kb if use_kernels else bmu_argmin_kb_plain
+            return fn(*self.operands(x), kblock)
         if self.mode == "margin":
             top2 = bmu_top2 if use_kernels else bmu_top2_plain
             idx, val, _, val2 = top2(*self.operands(x))
@@ -513,11 +599,15 @@ class PackedCodebook:
             fn = bmu_highest if use_kernels else bmu_highest_plain
         return fn(*self.operands(x))
 
-    def top2(self, x, use_kernels=True):
+    def top2(self, x, use_kernels=True, kblock=None):
         """K2's ``(idx, val, idx2, val2)``; modes ``'packed'`` and
-        ``'bf16'``."""
+        ``'bf16'``, without ``kblock`` (as the JAX package's
+        ``top2=True``)."""
+        _check_kblock_mode(self.mode, kblock)
         if self.mode not in ("packed", "bf16"):
             raise ValueError("the top-2 search runs in mode 'packed' or 'bf16'")
+        if kblock is not None:
+            raise ValueError("top2=True does not support kblock")
         fn = bmu_top2 if use_kernels else bmu_top2_plain
         return fn(*self.operands(x))
 

@@ -24,8 +24,10 @@ __all__ = ["load_library", "build_dir", "SOURCES", "last_build_seconds"]
 
 _PKG = Path(__file__).resolve().parents[2]
 _CSRC = _PKG / "csrc"
-SOURCES = ("bmu.cu", "stats.cu", "highest.cu", "elementwise.cu", "manhattan.cu")
-HEADERS = ("tile_argmin.cuh",)
+SOURCES = (
+    "bmu.cu", "stats.cu", "highest.cu", "elementwise.cu", "manhattan.cu", "fused_stats.cu",
+)
+HEADERS = ("tile_argmin.cuh", "gemm_bmu.cuh")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -36,6 +38,7 @@ _F = ctypes.c_float
 # as c_void_p: ctypes would otherwise pass them as 32-bit ints)
 _SIGNATURES = {
     "xps_bmu_argmin": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "xps_bmu_argmin_kb": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "xps_bmu_top2": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
     "xps_scatter_stats": (_P, _P, _P, _P, _I, _I, _P, _P),
     "xps_bmu_highest": (_P, _P, _P, _I, _I, _I, _P, _P, _P),
@@ -44,6 +47,7 @@ _SIGNATURES = {
     "xps_bmu_lp_frac": (_P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P),
     "xps_bmu_split3": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     "xps_manhattan_distance": (_P, _P, _I, _I, _I, _P, _P),
+    "xps_bmu_stats_fused": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
 }
 
 _lock = threading.Lock()
