@@ -8,15 +8,24 @@ Run from the repository root on a machine with one CUDA card:
 Phases (each prints lines; any failure raises and exits non-zero):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build of the kernel library from ``xpysom_dask_tpu_torch/csrc``;
-  3. each GEMM-form and scatter kernel (K1 packed BMU argmin, K2 its top-2
-     form, K9 statistics scatter) against its plain PyTorch version on the
-     card: the flagship shape, a ragged shape and a tie fixture, with
-     CUDA-event timings;
-  4. each register-tiled kernel (K4 exact-f32 GEMM argmin, K5 L1, K6 odd
-     p = 3, K7 fractional p = 1.5 (its sqrt branch) and 2.7 (exp/log))
-     against its plain version: the flagship chunk,
-     K4 at the even-p expansion's width (p = 4, D' = 320), a ragged shape
-     and a tie and zero-distance fixture, with CUDA-event timings;
+  3. K1 (packed BMU argmin) and K2 (its top-2 form) against their plain
+     PyTorch versions on the card (the flagship shape, a ragged shape and
+     a tie fixture), then K9 (statistics scatter) bitwise against its
+     plain version and a second launch on the three flagship chunks
+     (uniform nodes, K1's nodes, the initial codebook's) and on fixtures
+     (ragged, every row on one node, D = 512 with its column passes,
+     out-of-range int32 and int64 indices), with CUDA-event timings of
+     each flagship chunk beside ``index_add_`` and torch.profiler splits
+     by kernel name of one call of each;
+  4. K4 (the f32-accuracy GEMM argmin on the TF32 tensor cores) and the
+     register-tiled kernels (K5 L1, K6 odd p = 3, K7 fractional p = 1.5
+     (its sqrt branch) and 2.7 (exp/log)) against their plain versions:
+     the flagship chunk, K4 at the even-p expansion's width (p = 4,
+     D' = 320) held to K4's stated envelope plus cuBLAS's f32 bound, a
+     ragged shape and a tie and zero-distance fixture, K4's TF32 split
+     bit for bit against the rounding on the bits, with CUDA-event
+     timings beside the library call (K4 beside ``addmm`` + ``argmin``,
+     with its three-pass TF32 bound and the FP32 FFMA bound);
   5. the other precision modes' kernels: K3 (split3) and K1/K2 under the
      bf16 and split2 operands against their plain versions (flagship,
      ragged, tie fixture), and K8 (the L1 matrix) bitwise against its
@@ -85,8 +94,8 @@ VAL_RTOL = 1e-5
 # near-tie flips between two correct argmins)
 EPOCH_RTOL, EPOCH_ATOL = 1e-3, 1e-4
 
-# exact-f32 dot products (K4 and its cuBLAS plain version): each of the
-# two sums of D products errs by at most D * 2^-24 * sum_d |x_d||2 w_d|
+# an f32 FFMA dot product of D terms (K4's cuBLAS plain version) errs by
+# at most D * 2^-24 * sum_d |x_d||2 w_d|
 F32_DOT = 2.0**-24
 # K7 (accurate expf/logf, a few ulp per term): the JAX tests' near-tie
 # margin (tests/test_pallas.py, relative float64 runner-up margin) and
@@ -128,6 +137,7 @@ WIDE_SHAPES = ((16384, 16384, 512), (16384, 4096, 1024))
 # time at these rates and the bytes' time (each input read once, each
 # output written once) at the memory rate.
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 FP32_FLOPS = 67e12  # an FMA counts as two
 FP32_INSTR = FP32_FLOPS / 2  # FP32 instructions per second
 SFU_RATE = 132 * 16 * 1.98e9
@@ -254,25 +264,128 @@ def compare_bmu(torch, kb, name, x, w):
     return err1, err2, (a, w_aug, xy), i_k
 
 
-def compare_stats(torch, ks, name, x, m, idx, xy):
+def compare_stats(torch, ks, name, x, m, idx, xy, dtype=None):
+    """K9 against its plain version and a second launch, bit for bit;
+    returns the device operands."""
     xt, mt = torch.from_numpy(x).cuda(), torch.from_numpy(m).cuda()
-    it = torch.as_tensor(idx, dtype=torch.int32).cuda()
+    it = torch.as_tensor(idx, dtype=dtype or torch.int32).cuda()
     k1 = ks.scatter_stats(xt, mt, it, xy)
     k2 = ks.scatter_stats(xt, mt, it, xy)
     p = ks.scatter_stats_plain(xt, mt, it, xy)
     torch.cuda.synchronize()
+    require(k1.shape == (xy, x.shape[1] + 1), f"{name}: K9 shape {tuple(k1.shape)}")
     require(torch.equal(k1.view(torch.int32), k2.view(torch.int32)),
             f"{name}: K9 two launches differ in bits")
     require(torch.equal(k1.view(torch.int32), p.view(torch.int32)),
             f"{name}: K9 differs from its plain version in bits")
-    require(float(k1[:, -1].sum()) == float(m.sum()), f"{name}: K9 counts lost rows")
-    print(f"{name}: K9 bitwise equal to plain and to itself; nodes {xy}, rows {len(idx)}")
+    valid = (np.asarray(idx) >= 0) & (np.asarray(idx) < xy)
+    require(float(k1[:, -1].sum()) == float(m[valid].sum()), f"{name}: K9 counts lost rows")
+    print(f"{name}: K9 bitwise equal to plain and to itself; nodes {xy}, rows {len(idx)}, "
+          f"D {x.shape[1]}, longest run {int(np.bincount(np.asarray(idx)[valid]).max())}")
     return (xt, mt, it, xy)
+
+
+def _profile_split(torch, fn):
+    """Device microseconds of one call of ``fn`` by kernel name
+    (torch.profiler; names cut to 60 characters). The trace sometimes
+    comes back without device events; up to three tries."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    split = {}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if str(getattr(e, "device_type", "")).endswith("CUDA"):
+                name = e.name[:60]
+                split[name] = round(split.get(name, 0.0) + e.time_range.end - e.time_range.start, 3)
+        if split:
+            break
+    return split
+
+
+def k9_chunks(torch, kb, x, idx_k1):
+    """The three flagship chunks K9 is timed on, as (label, x, m, idx):
+    uniform nodes, K1's nodes on a random codebook, and the main path's
+    first chunk (``x``) under its initial codebook (the same RandomState
+    draws as XPySom(random_seed=0)), where early training sends long runs
+    of rows to a few nodes."""
+    f = FLAGSHIP
+    xy = f["x"] * f["y"]
+    rng = np.random.RandomState(10)
+    m = (rng.rand(f["chunk"]) > 0.05).astype(np.float32)
+    w0 = np.random.RandomState(0).rand(f["x"], f["y"], f["d"]) * 2 - 1
+    w0 = (w0 / np.linalg.norm(w0, axis=-1, keepdims=True)).reshape(-1, f["d"])
+    cb0 = kb.PackedCodebook(torch.from_numpy(w0.astype(np.float32)).cuda())
+    idx0, _ = kb.bmu_argmin(*cb0.operands(torch.from_numpy(x).cuda()))
+    return [("uniform nodes", x, m, rng.randint(xy, size=f["chunk"])),
+            ("K1's nodes", x, m, idx_k1),
+            ("initial codebook's nodes", x, np.ones(f["chunk"], np.float32),
+             idx0.cpu().numpy())]
+
+
+def phase_stats(torch, card, x, idx_k1):
+    """K9 bitwise against its plain version and a second launch on the
+    three flagship chunks and on fixtures (ragged, every row on one node,
+    D = 512 with its column passes, out-of-range int32 and int64 indices),
+    then timed on each flagship chunk beside ``index_add_`` with a
+    torch.profiler split of one call. Returns the record's timings (the
+    initial codebook's chunk, the costliest), error and bound."""
+    from xpysom_dask_tpu_torch.ops.kernels import bmu as kb
+    from xpysom_dask_tpu_torch.ops.kernels import stats as ks
+
+    f = FLAGSHIP
+    xy = f["x"] * f["y"]
+    cases = [(label, compare_stats(torch, ks, f"K9 flagship, {label}", xx, m, idx, xy))
+             for label, xx, m, idx in k9_chunks(torch, kb, x, idx_k1)]
+    rng = np.random.RandomState(11)
+    m = (rng.rand(f["chunk"]) > 0.05).astype(np.float32)
+    compare_stats(torch, ks, "K9 ragged", rng.rand(1000, 5).astype(np.float32),
+                  (rng.rand(1000) > 0.2).astype(np.float32), rng.randint(91, size=1000), 91)
+    compare_stats(torch, ks, "K9 every row on node 5", x, m, np.full(f["chunk"], 5), xy)
+    compare_stats(torch, ks, "K9 D=512 (column passes)",
+                  rng.rand(f["chunk"], 512).astype(np.float32), m,
+                  rng.randint(xy, size=f["chunk"]), xy)
+    bad = rng.randint(-xy, 2 * xy, size=f["chunk"])
+    compare_stats(torch, ks, "K9 out-of-range int32 indices", x, m, bad, xy)
+    bad64 = np.where(rng.rand(f["chunk"]) < 0.1, bad + (1 << 32), bad)
+    compare_stats(torch, ks, "K9 out-of-range int64 indices", x, m, bad64, xy, torch.int64)
+
+    # K9 reads x, mask and idx and writes the (XY, D+1) statistics: one
+    # multiply and one add per element
+    n, d = x.shape
+    b = bound(2.0 * n * (d + 1) / FP32_INSTR, 4 * (n * d + 2 * n + xy * (d + 1)))
+    timings = {}
+    for label, (xs, ms9, is9, _) in cases:
+        rows9 = torch.cat([xs * ms9[:, None], ms9[:, None]], dim=1)
+        idx9 = is9.long()
+
+        def library():
+            return torch.zeros((xy, d + 1), device="cuda").index_add_(0, idx9, rows9)
+
+        t = (cuda_ms(torch, lambda: ks.scatter_stats(xs, ms9, is9, xy)),
+             cuda_ms(torch, lambda: ks.scatter_stats_plain(xs, ms9, is9, xy), reps=3, warmup=1),
+             cuda_ms(torch, library))
+        timings[label] = t
+        split = _profile_split(torch, lambda: ks.scatter_stats(xs, ms9, is9, xy))
+        lib_split = _profile_split(torch, library)
+        print(f"time scatter_stats (K9) on the flagship chunk, {label}: kernel {t[0]:.4f} ms, "
+              f"plain {t[1]:.4f} ms, library (index_add_) {t[2]:.4f} ms, bound {b[0]:.4f} ms "
+              f"by {b[1]} (CUDA events; {card})")
+        print(f"profile scatter_stats, {label}: device us by kernel {split} "
+              f"(torch.profiler, one call; {card})")
+        print(f"profile index_add_ (zeros + index_add_), {label}: device us by kernel "
+              f"{lib_split} (torch.profiler, one call; {card})")
+        print(f"device time of one call, {label}: K9 {sum(split.values()):.3f} us, "
+              f"index_add_ {sum(lib_split.values()):.3f} us (torch.profiler; {card})")
+    return timings["initial codebook's nodes"], 0.0, b
 
 
 def phase_kernels(torch, card):
     from xpysom_dask_tpu_torch.ops.kernels import bmu as kb
-    from xpysom_dask_tpu_torch.ops.kernels import stats as ks
 
     rng = np.random.RandomState(0)
     f = FLAGSHIP
@@ -298,47 +411,17 @@ def phase_kernels(torch, card):
     require(i1.tolist() == [0, 7, 0, 0] and i2.tolist() == [1, 1500, 1, 1],
             f"tie fixture: K2 {i1.tolist()} {i2.tolist()}")
 
-    m = (rng.rand(f["chunk"]) > 0.05).astype(np.float32)
-    rand_idx = rng.randint(f["x"] * f["y"], size=f["chunk"])
-    compare_stats(torch, ks, "K9 flagship, uniform nodes", x, m, rand_idx, f["x"] * f["y"])
-    compare_stats(torch, ks, "K9 flagship, K1's nodes", x, m, idx, f["x"] * f["y"])
-    # the main path's first chunk against its initial codebook (the same
-    # RandomState draws as XPySom(random_seed=0)): early training sends
-    # long runs of rows to a few nodes, the K9 case that costs most
-    w0 = np.random.RandomState(0).rand(f["x"], f["y"], f["d"]) * 2 - 1
-    w0 = (w0 / np.linalg.norm(w0, axis=-1, keepdims=True)).reshape(-1, f["d"])
-    cb0 = kb.PackedCodebook(torch.from_numpy(w0.astype(np.float32)).cuda())
-    idx0, _ = kb.bmu_argmin(*cb0.operands(torch.from_numpy(x).cuda()))
-    idx0 = idx0.cpu().numpy()
-    print(f"K9 main-path chunk: longest run {np.bincount(idx0).max()} rows")
-    st = compare_stats(torch, ks, "K9 flagship, initial codebook's nodes", x,
-                       np.ones(f["chunk"], np.float32), idx0, f["x"] * f["y"])
-    xr9 = rng.rand(1000, 5).astype(np.float32)
-    compare_stats(torch, ks, "K9 ragged", xr9, (rng.rand(1000) > 0.2).astype(np.float32),
-                  rng.randint(91, size=1000), 91)
-
-    # the library yardstick of K9: index_add_ of the masked [x | 1] rows
-    xs9, ms9, is9, xy9 = st
-    rows9 = torch.cat([xs9 * ms9[:, None], ms9[:, None]], dim=1)
-    idx9 = is9.long()
     timings = {
         "bmu_argmin": (cuda_ms(torch, lambda: kb.bmu_argmin(*ops)),
                        cuda_ms(torch, lambda: kb.bmu_argmin_plain(*ops)), None),
         "bmu_top2": (cuda_ms(torch, lambda: kb.bmu_top2(*ops)),
                      cuda_ms(torch, lambda: kb.bmu_top2_plain(*ops)), None),
-        "scatter_stats": (
-            cuda_ms(torch, lambda: ks.scatter_stats(*st)),
-            cuda_ms(torch, lambda: ks.scatter_stats_plain(*st)),
-            cuda_ms(torch, lambda: torch.zeros((xy9, rows9.shape[1]), device="cuda")
-                    .index_add_(0, idx9, rows9)),
-        ),
     }
-    for name, (ms, plain, lib) in timings.items():
-        print(f"time {name} at the flagship chunk: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"library {lib if lib is None else f'{lib:.4f}'} ms (CUDA events; {card})")
+    for name, (ms, plain, _) in timings.items():
+        print(f"time {name} at the flagship chunk: kernel {ms:.4f} ms, plain {plain:.4f} ms "
+              f"(CUDA events; {card})")
     # bounds at the flagship chunk: the augmented GEMM's 2·N·XY·K operations
-    # on the tensor cores; K9 reads x, mask and idx and writes the (XY, D+1)
-    # statistics
+    # on the tensor cores
     a, w_aug, xy = ops
     n, k = a.shape
     gemm = 2.0 * n * xy * k / BF16_FLOPS
@@ -346,10 +429,11 @@ def phase_kernels(torch, card):
     bounds = {
         "bmu_argmin": bound(gemm, gemm_bytes + 8 * n),
         "bmu_top2": bound(gemm, gemm_bytes + 16 * n),
-        "scatter_stats": bound(2.0 * xs9.numel() / FP32_INSTR,
-                               4 * (xs9.numel() + 2 * len(ms9) + xy9 * rows9.shape[1])),
     }
-    errs = {"bmu_argmin": err1, "bmu_top2": err2, "scatter_stats": 0.0}
+    errs = {"bmu_argmin": err1, "bmu_top2": err2}
+    # K9 on this chunk (K1's nodes among the three)
+    timings["scatter_stats"], errs["scatter_stats"], bounds["scatter_stats"] = phase_stats(
+        torch, card, x, idx)
     return timings, errs, bounds
 
 
@@ -468,13 +552,71 @@ def compare_tile(torch, name, kernel, plain, x, w, *args, exact, d64=None, band=
     return float(err.max()), (xt, wt, *extra)
 
 
+def _k4_envelope(d):
+    """K4's stated error per unit of sum_d |x_d||2 w_d| (csrc/highest.cu)."""
+    from xpysom_dask_tpu_torch.ops.kernels.bmu import highest_envelope
+
+    return highest_envelope(d)
+
+
+def _tf32_rna_bits(v):
+    """f32 ``v`` rounded to TF32 to nearest, ties away from zero, on the
+    bits (ordinary finite values): add half of the 13 dropped bits to the
+    magnitude, clear them."""
+    return ((v.view(np.uint32).astype(np.uint64) + 0x1000) & 0xFFFFE000).astype(
+        np.uint32).view(np.float32)
+
+
+def _check_split_tf32(torch, kb):
+    """K4's split on the card (``cvt.rna.satfinite.tf32.f32``) against the
+    rounding on the bits, bit for bit, for one 128 x 16 block of ordinary
+    values (exact ties included); values within half a TF32 ulp of FLT_MAX
+    split into finite halves."""
+    from xpysom_dask_tpu_torch.ops.kernels import build
+
+    rng = np.random.RandomState(5)
+    v = (rng.randn(128, 16) * 10.0 ** rng.randint(-30, 31, (128, 16))).astype(np.float32)
+    ties = v[:8].view(np.uint32)
+    ties[:] = (ties & 0xFFFFE000) | 0x1000  # halfway between two TF32 values
+    v[8, :4] = np.float32(np.finfo(np.float32).max) * np.array([1, -1, 1, -1], np.float32)
+    v[8, 4:8] = np.nextafter(v[8, :4], 0)
+    hi, lo = kb._split_tf32(build.load_library(), torch.from_numpy(v).cuda(),
+                            torch.cuda.current_stream().cuda_stream)
+    hi, lo = hi.view(512, 4).cpu().numpy(), lo.view(512, 4).cpu().numpy()
+    # the search's block layout: float4 p holds row r[p], depth k[p] .. + 3
+    p = np.arange(512)
+    r, k = (p // 32) * 8 + p % 8, ((p // 8) % 4) * 4
+    got_hi = np.stack([hi[:, j] for j in range(4)], 1)
+    got_lo = np.stack([lo[:, j] for j in range(4)], 1)
+    src = np.stack([v[r, k + j] for j in range(4)], 1)
+    ordinary = np.ones(src.shape, bool)
+    ordinary[r == 8] = ~np.isin(k[r == 8][:, None] + np.arange(4), np.arange(8))
+    want_hi = _tf32_rna_bits(src)
+    want_lo = _tf32_rna_bits(src - want_hi)
+    require(np.array_equal(got_hi.view(np.uint32)[ordinary], want_hi.view(np.uint32)[ordinary])
+            and np.array_equal(got_lo.view(np.uint32)[ordinary],
+                               want_lo.view(np.uint32)[ordinary]),
+            "K4 split: cvt.rna differs from the rounding on the bits")
+    big = ~ordinary
+    s64 = src[big].astype(np.float64)
+    require(np.isfinite(got_hi[big]).all() and np.isfinite(got_lo[big]).all()
+            and (np.abs(got_hi[big] + got_lo[big].astype(np.float64) - s64)
+                 <= 2.0**-22 * np.abs(s64)).all(),
+            f"K4 split near FLT_MAX: {got_hi[big]} {got_lo[big]}")
+    print(f"K4 split: cvt.rna.satfinite.tf32.f32 equals the rounding on the bits "
+          f"({int(ordinary.sum())} values, {ties.size} exact ties); values near FLT_MAX "
+          f"split into finite halves within 2^-22")
+
+
 def _dot_checks(x, w, w_sq):
     """K4's float64 distances and its near-tie band and value tolerance:
-    twice the f32 dot bound D * 2^-24 * sum_d |x_d||2 w_d| (two sums, the
-    kernel's and cuBLAS's), plus the rounding of the w_sq add."""
+    K4's envelope plus cuBLAS's D * 2^-24, each times sum_d |x_d||2 w_d|,
+    plus the rounding of the w_sq add; the band is twice that (two
+    candidates)."""
     x64, w64, s64 = x.astype(np.float64), w.astype(np.float64), w_sq.astype(np.float64)
     mag = np.abs(x64) @ (2 * np.abs(w64)).max(0)
-    tol = 2 * x.shape[1] * F32_DOT * mag + F32_DOT * np.abs(s64).max()
+    d = x.shape[1]
+    tol = (_k4_envelope(d) + d * F32_DOT) * mag + F32_DOT * np.abs(s64).max()
 
     def d64(r, cols):
         return -2.0 * w64[cols] @ x64[r] + s64[cols]
@@ -552,6 +694,7 @@ def phase_tile_kernels(torch, card):
     i, _ = kb.bmu_highest(torch.from_numpy(xt).cuda(), torch.from_numpy(wt).cuda(),
                           torch.from_numpy((wt * wt).sum(1)).cuda())
     require(i.cpu().tolist() == [0, 7, 0, 0], f"K4 tie fixture: {i.cpu().tolist()}")
+    _check_split_tf32(torch, kb)
 
     # K5-K7 on the flagship chunk and the ragged shape
     cases = (
@@ -607,13 +750,18 @@ def phase_tile_kernels(torch, card):
         t = (cuda_ms(torch, lambda: kb.bmu_highest(*o)),
              cuda_ms(torch, lambda: kb.bmu_highest_plain(*o)),
              cuda_ms(torch, lambda: addmm_argmin(*o)))
+        n, d = o[0].shape
+        xy = o[1].shape[0]
+        nbytes = 4 * (n * d + xy * d + xy) + 8 * n
+        # three TF32 passes on the tensor cores; one FP32 FFMA pass beside it
+        b = bound(3 * 2.0 * n * xy * d / TF32_FLOPS, nbytes)
+        b_ffma = bound(2.0 * n * xy * d / FP32_FLOPS, nbytes)
         if key:
             timings[key] = t
-            n, d = o[0].shape
-            xy = o[1].shape[0]
-            bounds[key] = bound(2.0 * n * xy * d / FP32_FLOPS, 4 * (n * d + xy * d + xy) + 8 * n)
+            bounds[key] = b
         print(f"time {label}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, library (addmm + "
-              f"argmin) {t[2]:.4f} ms (CUDA events; {card})")
+              f"argmin) {t[2]:.4f} ms; bound {b[0]:.4f} ms (3 TF32 passes, by {b[1]}), FP32 "
+              f"FFMA bound {b_ffma[0]:.4f} ms (CUDA events; {card})")
     for _, label, *_ in cases:
         key, (xt_, wt_), args, kern, plain = ops[label]
         p = args[0] if args else 1
@@ -981,11 +1129,11 @@ def phase_short_runs(torch):
         return np.abs(x - c), np.abs(w2 - c)
 
     def highest_band(som):
-        # twice the exact-f32 dot bound (kernel and cuBLAS sums) on the
-        # centered operands of -2 x.w + |w|^2
+        # twice K4's envelope plus cuBLAS's f32 bound on the centered
+        # operands of -2 x.w + |w|^2
         def band(x, w2, _):
             xc, wc = centered(x, w2, som)
-            return 2 * 2 * d * F32_DOT * (wc @ (2 * xc)).max()
+            return 2 * (_k4_envelope(d) + d * F32_DOT) * (wc @ (2 * xc)).max()
         return band
 
     def expansion_band(som, p):
@@ -993,7 +1141,8 @@ def phase_short_runs(torch):
         # sum_k |phi_k||psi_k| = sum_d (|x_d - c_d| + |w_d - c_d|)^p
         def band(x, w2, _):
             xc, wc = centered(x, w2, som)
-            return 2 * 2 * d * (p + 1) * F32_DOT * ((xc + wc) ** p).sum(1).max()
+            dp = d * (p + 1)
+            return 2 * (_k4_envelope(dp) + dp * F32_DOT) * ((xc + wc) ** p).sum(1).max()
         return band
 
     def bf16_band(som):

@@ -176,6 +176,59 @@ def test_plain_k9_ignores_out_of_range_and_all_masked():
     assert acc[:, -1].tolist() == [16.0, 16.0] + [0.0] * 14
 
 
+@pytest.mark.parametrize("case", ["one node", "long run", "out of range", "odd D", "wide D"])
+def test_plain_k9_bitwise_equals_pallas_interpret_under_skew(case):
+    """K9's contract where csrc/stats.cu's grouping and column passes
+    matter: every row on one node, one long run among uniform rows,
+    negative and too-large indices (they contribute nothing; the JAX
+    kernel, which clamps, gets them masked), an odd D and a D past one
+    128-column pass."""
+    rng = np.random.RandomState(len(case))
+    n, d, xy = {"odd D": (400, 67, 50), "wide D": (200, 300, 30)}.get(case, (600, 6, 40))
+    x = rng.randn(n, d).astype(np.float32)
+    m = (rng.rand(n) > 0.1).astype(np.float32)
+    idx = rng.randint(xy, size=n).astype(np.int32)
+    if case == "one node":
+        idx[:] = 17
+    elif case == "long run":
+        idx[rng.rand(n) < 0.6] = 3
+    elif case == "out of range":
+        idx = rng.randint(-xy, 2 * xy, size=n).astype(np.int32)
+    valid = (idx >= 0) & (idx < xy)
+    ref = jax_scatter_stats(
+        jnp.asarray(x), jnp.asarray(m * valid), jnp.asarray(np.where(valid, idx, 0)), xy,
+        interpret=True, return_acc=True,
+    )
+    got = ks.scatter_stats(torch.from_numpy(x), torch.from_numpy(m), torch.from_numpy(idx), xy)
+    assert got.shape == (xy, d + 1)
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(np.asarray(ref)))
+    # int64 indices past 2^32 stay out of range
+    got64 = ks.scatter_stats(torch.from_numpy(x), torch.from_numpy(m),
+                             torch.from_numpy(np.where(valid, idx, idx.astype(np.int64) + (1 << 32))), xy)
+    np.testing.assert_array_equal(_bits(got64.numpy()), _bits(np.asarray(ref)))
+
+
+@pytest.mark.parametrize("xy,d,sms", [(16384, 64, 132), (91, 5, 132), (65536, 1023, 132),
+                                      (1000, 300, 114), (1, 1, 8)])
+def test_k9_plan_covers_every_node_once(xy, d, sms):
+    """csrc/stats.cu's launch as the wrapper sizes it: block b owns nodes
+    [b·nodes, (b+1)·nodes) ∩ [0, XY), so every node lies in exactly one
+    range, within the kernel's node-id limit; column passes of at most 128
+    cover the D + 1 columns. (The kernel's shared memory is sized and
+    checked against the Hopper limit in csrc/stats.cu.)"""
+    nodes, blocks, cols = ks.stats_plan(xy, d, sms)
+    assert 1 <= nodes <= ks.MAX_NODES and 1 <= cols <= ks.MAX_COLS
+    owner = np.repeat(np.arange(blocks), nodes)[:xy]
+    assert len(owner) == xy and (blocks - 1) * nodes < xy <= blocks * nodes
+    np.testing.assert_array_equal(np.bincount(owner, minlength=blocks) > 0, True)
+    passes = -(-(d + 1) // ks.MAX_COLS)
+    assert cols == min(d + 1, ks.MAX_COLS) and (passes - 1) * ks.MAX_COLS < d + 1
+    if xy >= 2 * sms * ks.MAX_NODES:
+        assert nodes == ks.MAX_NODES
+    elif xy >= 2 * sms:
+        assert blocks <= 2 * sms  # about two blocks per SM
+
+
 def test_launch_counters_stay_zero_on_cpu():
     kernels.reset_launch_counts()
     rng = np.random.RandomState(0)
@@ -269,13 +322,17 @@ def _assert_winners(got, want, d64, band):
         assert abs(d64[r, got[r]] - d64[r, want[r]]) <= band[r], (r, got[r], want[r])
 
 
-@pytest.mark.parametrize("n,xy,d", [(300, 333, 7), (64, 25, 3), (1000, 91, 5), (256, 2048, 64)])
+@pytest.mark.parametrize("n,xy,d", [(300, 333, 7), (64, 25, 3), (1000, 91, 5), (256, 2048, 64),
+                                    (256, 512, 64), (300, 91, 5)])
 def test_plain_k4_matches_pallas_highest_interpret(n, xy, d):
     rng = np.random.RandomState(xy + 1)
     x = (rng.rand(n, d) * 2 + 1).astype(np.float32)  # offset data: centering matters
     w = (rng.rand(xy, d) * 2 + 1).astype(np.float32)
     cb = kb.PackedCodebook(torch.from_numpy(w), "highest")
     i, v = cb.argmin(torch.from_numpy(x))
+    # on CPU tensors the K4 wrapper is its plain version, bit for bit
+    i_p, v_p = kb.bmu_highest_plain(*cb.operands(torch.from_numpy(x)))
+    assert torch.equal(i, i_p) and torch.equal(v.view(torch.int32), v_p.view(torch.int32))
     i_ref, v_ref = pl_bmu.bmu_euclidean(
         jnp.asarray(x), jnp.asarray(w), interpret=True, mode="highest",
         center=jnp.asarray(cb.center.numpy()),

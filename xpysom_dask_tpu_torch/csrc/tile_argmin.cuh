@@ -1,5 +1,9 @@
 // Register-tiled exact-f32 sample-by-codebook tiling for Hopper (sm_90a),
-// shared by K4 (highest.cu), K5-K7 (elementwise.cu) and K8 (manhattan.cu).
+// shared by K5-K7 (elementwise.cu) and K8 (manhattan.cu). K4 left it for
+// the TF32 tensor cores (highest.cu): a dot product has a matrix-unit
+// form, the elementwise L1 and |x - w|^p terms do not, so these kernels
+// stay on the FP32 pipes, where their term's instruction count bounds
+// them.
 //
 // For every sample row n and codebook row j the tiling computes
 //     d[n, j] = finish(sum_d term(x[n, d], w[j, d]))

@@ -26,9 +26,10 @@ ROUNDED codebook, unless the caller's ``w_sq`` has other semantics
 unsplit f32 ``‖w‖²`` and sums three separate f32-accumulated dots in the
 order ``(xh·wh + xh·wl) + xl·wh`` (K3): a different order than packed's
 single chain, which can flip float64 near-ties. ``highest`` computes the
-same ``d`` with an exact f32 dot (K4). ``margin`` runs the bf16 operands
-through K2, then re-ranks only the rows whose top-2 margin lies inside
-the bf16 error bound with packed K1 (:func:`margin_rescue`).
+same ``d`` at f32 accuracy (K4: three TF32 tensor-core passes).
+``margin`` runs the bf16 operands through K2, then re-ranks only the rows
+whose top-2 margin lies inside the bf16 error bound with packed K1
+(:func:`margin_rescue`).
 
 ``PackedCodebook`` owns the codebook side of every GEMM-form search:
 centering by the codebook mean (which shrinks the split modes' error on
@@ -55,7 +56,7 @@ import torch
 
 from ..distances import fp32_matmul
 from . import build
-from .tile import check_tile_operands, first_argmin, launch_tile_argmin
+from .tile import check_tile_operands, first_argmin
 
 __all__ = [
     "split_bf16",
@@ -74,6 +75,7 @@ __all__ = [
     "bmu_split3_plain",
     "bmu_highest",
     "bmu_highest_plain",
+    "highest_envelope",
     "margin_suspects",
     "margin_rescue",
     "bmu_cosine",
@@ -424,6 +426,14 @@ def bmu_split3(xh, xl, wh, wl, w_sq, xy):
 bmu_split3.launches = 0
 
 
+def highest_envelope(d):
+    """K4's error bound on ``-2·x·w + w_sq`` per unit of
+    ``Σ_d |x_d||2w_d|`` at depth ``d`` (derived in csrc/highest.cu): the
+    TF32 split's dropped ``lo·lo`` term and residues, ``3·2⁻²²``, and the
+    tensor core's f32 accumulation of the 3d products, ``3·d·2⁻²³``."""
+    return 3 * 2.0**-22 + 3 * d * 2.0**-23
+
+
 def bmu_highest_plain(x, w, w_sq):
     """Plain K4: ``-2·x·wᵀ + ‖w‖²`` with an fp32 matmul (no TF32), then the
     first-index argmin."""
@@ -432,24 +442,58 @@ def bmu_highest_plain(x, w, w_sq):
     return first_argmin(-2.0 * cross + w_sq[None, :])
 
 
+def _split_tf32(lib, t, stream):
+    """K4's operand halves ``(hi, lo)`` of ``t`` (R, D) in the search's
+    block layout: blocks of 128 rows x 16 of depth, zero-padded
+    (csrc/highest.cu ``xps_split_tf32``)."""
+    rows, d = t.shape
+    size = -(-rows // 128) * 128 * -(-d // 16) * 16
+    hi = torch.empty(size, dtype=_F32, device=t.device)
+    lo = torch.empty(size, dtype=_F32, device=t.device)
+    build.check(lib.xps_split_tf32(t.data_ptr(), rows, d, hi.data_ptr(), lo.data_ptr(), stream),
+                "split_tf32")
+    return hi, lo
+
+
 def bmu_highest(x, w, w_sq):
     """K4: ``(idx, val)`` per row of ``x`` (N, D), ``idx`` the first-index
-    argmin over the codebook rows ``w`` (XY, D) of ``-2·x·w + w_sq`` in
-    exact f32 and ``val`` its value.
+    argmin over the codebook rows ``w`` (XY, D) of ``-2·x·w + w_sq`` at f32
+    accuracy and ``val`` its value.
 
     Source note: replaces ``_kernel_highest`` (xpysom_dask_tpu/ops/pallas/
-    bmu.py, ``Precision.HIGHEST``). On the H100 the FP32 pipes bound it
-    (1.7e10 FMAs per flagship chunk, no tensor cores: TF32 would lose the
-    exactness the mode exists for); a register-tiled FFMA search with the
-    running argmin in registers (csrc/highest.cu, csrc/tile_argmin.cuh)."""
+    bmu.py, ``Precision.HIGHEST``, a multi-pass bf16 product on the TPU).
+    On the H100 the tensor cores bound it: three TF32 passes (``lo·hi +
+    hi·lo``, then ``hi·hi`` of the split ``v = hi + lo``), 0.208 ms at the
+    flagship chunk at 495 TFLOP/s. csrc/highest.cu splits x and w once per
+    call into blocks laid out for ``wgmma``, then runs ``wgmma`` m64n128k8
+    from a ring of bulk copies with 128 x 128 block tiles and keeps the
+    running argmin in registers; its error envelope,
+    ``(3·2⁻²² + 3·D·2⁻²³)·Σ_d|x_d||2w_d|`` (:func:`highest_envelope`), is
+    derived there."""
     check_tile_operands(x, w, w_sq)
     if w_sq.shape != (w.shape[0],):
         raise ValueError(f"w_sq (XY,) expected, got {tuple(w_sq.shape)}")
     if x.device.type == "cpu":
         return bmu_highest_plain(x, w, w_sq)
-    out = launch_tile_argmin("xps_bmu_highest", x, w, operands=(w_sq,))
+    x, w, w_sq = x.contiguous(), w.contiguous(), w_sq.contiguous()
+    (n, d), xy = x.shape, w.shape[0]
+    if max(n, d, xy) >= 2**31:
+        raise ValueError("operand sizes must fit 32-bit ints")
+    idx = torch.empty(n, dtype=torch.int32, device=x.device)
+    val = torch.empty(n, dtype=_F32, device=x.device)
+    if n == 0:
+        return idx, val
+    lib = build.load_library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    xh, xl = _split_tf32(lib, x, stream)
+    wh, wl = _split_tf32(lib, w, stream)
+    rc = lib.xps_bmu_highest(
+        xh.data_ptr(), xl.data_ptr(), wh.data_ptr(), wl.data_ptr(), w_sq.data_ptr(), n, d, xy,
+        idx.data_ptr(), val.data_ptr(), stream,
+    )
+    build.check(rc, "bmu_highest")
     bmu_highest.launches += 1
-    return out
+    return idx, val
 
 
 bmu_highest.launches = 0

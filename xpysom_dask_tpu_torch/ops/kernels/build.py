@@ -40,8 +40,9 @@ _SIGNATURES = {
     "xps_bmu_argmin": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
     "xps_bmu_argmin_kb": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "xps_bmu_top2": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
-    "xps_scatter_stats": (_P, _P, _P, _P, _I, _I, _P, _P),
-    "xps_bmu_highest": (_P, _P, _P, _I, _I, _I, _P, _P, _P),
+    "xps_scatter_stats": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "xps_bmu_highest": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
+    "xps_split_tf32": (_P, _I, _I, _P, _P, _P),
     "xps_bmu_manhattan": (_P, _P, _I, _I, _I, _P, _P, _P),
     "xps_bmu_lp_odd": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
     "xps_bmu_lp_frac": (_P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P),

@@ -1,5 +1,5 @@
 """The shared launcher of the register-tiled exact-f32 BMU searches built on
-``csrc/tile_argmin.cuh`` (K4 in ``bmu.py``, K5–K7 in ``elementwise.py``),
+``csrc/tile_argmin.cuh`` (K5–K7 in ``elementwise.py``),
 their operand checks, and the first-index argmin every plain version ends
 with."""
 
