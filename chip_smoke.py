@@ -8,9 +8,14 @@ Run from the repository root on a machine with one CUDA card:
 Phases (each prints lines; any failure raises and exits non-zero):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build of the kernel library from ``xpysom_dask_tpu_torch/csrc``;
-  3. K1 (packed BMU argmin) and K2 (its top-2 form) against their plain
-     PyTorch versions on the card (the flagship shape, a ragged shape and
-     a tie fixture), then K9 (statistics scatter) bitwise against its
+  3. the wgmma searches' layout pre-pass bit for bit against its plain
+     index map; K1 (packed BMU argmin, wgmma) and K2 (its top-2 form)
+     against their plain PyTorch versions on the card (the flagship shape,
+     a ragged shape and a tie fixture; K1 twice bitwise, with and without
+     the codebook laid out once), K1 under the norm_p p = 4 expansion in
+     mode packed, timed beside one bf16 cuBLAS product with an f32 output
+     + ``argmin`` and with each block's A streamed instead of resident,
+     then K9 (statistics scatter) bitwise against its
      plain version and a second launch on the three flagship chunks
      (uniform nodes, K1's nodes, the initial codebook's) and on fixtures
      (ragged, every row on one node, D = 512 with its column passes,
@@ -26,10 +31,12 @@ Phases (each prints lines; any failure raises and exits non-zero):
      bit for bit against the rounding on the bits, with CUDA-event
      timings beside the library call (K4 beside ``addmm`` + ``argmin``,
      with its three-pass TF32 bound and the FP32 FFMA bound);
-  5. the other precision modes' kernels: K3 (split3) and K1/K2 under the
-     bf16 and split2 operands against their plain versions (flagship,
-     ragged, tie fixture), and K8 (the L1 matrix) bitwise against its
-     plain version (flagship, ragged), with CUDA-event timings;
+  5. the other precision modes' kernels: K3 (split3, wgmma) and K1/K2
+     under the bf16 and split2 operands against their plain versions
+     (flagship, ragged, tie fixture; K3 twice bitwise), and K8 (the L1
+     matrix) bitwise against its plain version (flagship, ragged), with
+     CUDA-event timings (K3 beside its three cuBLAS products summed in the
+     kernel's order + ``argmin``);
   6. the main path: ``XPySom(128, 128, 64)`` on 2^19 samples, QE before,
      three epochs of a 10-epoch schedule, ``winner``, QE and TE, with the
      kernels' launch counters read around it;
@@ -59,7 +66,8 @@ Phases (each prints lines; any failure raises and exits non-zero):
      (16384, 16384, 512) and (16384, 4096, 1024), modes packed and bf16,
      kblock 512 and 1024, winners and values against the plain version and
      K1, a ragged shape, a tie fixture across slabs, the validation errors,
-     CUDA-event timings of K1-kb, K1 and the plain version;
+     K1 against its own plain version at the same shapes, CUDA-event
+     timings of K1-kb, K1 and the plain version;
  14. the fused-statistics epoch (K10): two epochs of the flagship
      (128x128x64, 2^19 samples, chunk 16384) whose statistics come from
      K10, bitwise equal to the same epochs from K1 + K9 and to a second
@@ -105,7 +113,7 @@ FRAC_MARGIN, FRAC_RTOL = 1e-4, 1e-5
 MARGIN_GATE = 6.0 * 2.0**-8
 
 REPLACES = {
-    "bmu_argmin": ("xpysom_dask_tpu_torch/csrc/bmu.cu",
+    "bmu_argmin": ("xpysom_dask_tpu_torch/csrc/gemm_sm90.cu",
                    "xpysom_dask_tpu/ops/pallas/bmu.py:254"),
     "bmu_top2": ("xpysom_dask_tpu_torch/csrc/bmu.cu",
                  "xpysom_dask_tpu/ops/pallas/bmu.py:341"),
@@ -119,7 +127,7 @@ REPLACES = {
                        "xpysom_dask_tpu/ops/pallas/bmu.py:1111"),
     "bmu_norm_p_frac": ("xpysom_dask_tpu_torch/csrc/elementwise.cu",
                         "xpysom_dask_tpu/ops/pallas/bmu.py:1175"),
-    "bmu_split3": ("xpysom_dask_tpu_torch/csrc/bmu.cu",
+    "bmu_split3": ("xpysom_dask_tpu_torch/csrc/gemm_sm90.cu",
                    "xpysom_dask_tpu/ops/pallas/bmu.py:212"),
     "manhattan_distance": ("xpysom_dask_tpu_torch/csrc/manhattan.cu",
                            "xpysom_dask_tpu/ops/pallas/manhattan.py:32"),
@@ -217,8 +225,10 @@ def _check_near_ties(name, rows, xc, wc, got, want):
 
 def compare_bmu(torch, kb, name, x, w):
     """Kernel vs plain for K1 and K2 on (x, w), packed as the main path
-    packs them; returns the K1/K2 max absolute value errors, the operands
-    for timing and K1's indices."""
+    packs them; K1 with the codebook laid out per call and laid out once
+    (``PackedCodebook.laid``), and a second launch, all bitwise equal.
+    Returns the K1/K2 max absolute value errors, the operands for timing,
+    K1's indices and the laid-out codebook."""
     xt = torch.from_numpy(x).cuda()
     cb = kb.PackedCodebook(torch.from_numpy(w).cuda())
     a, w_aug, xy = cb.operands(xt)
@@ -227,6 +237,13 @@ def compare_bmu(torch, kb, name, x, w):
     wc = (w - center).astype(np.float64)
 
     i_k, v_k = kb.bmu_argmin(a, w_aug, xy)
+    laid = cb.laid()[0]
+    for again in (kb.bmu_argmin(a, w_aug, xy, w_laid=laid), kb.bmu_argmin(a, w_aug, xy),
+                  cb.argmin(xt)):
+        require(torch.equal(again[0], i_k) and torch.equal(again[1].view(torch.int32),
+                                                           v_k.view(torch.int32)),
+                f"{name}: K1 launches (codebook laid out once / per call, samples packed "
+                "in one pass) differ in bits")
     i_p, v_p = kb.bmu_argmin_plain(a, w_aug, xy)
     t = kb.bmu_top2(a, w_aug, xy)
     tp = kb.bmu_top2_plain(a, w_aug, xy)
@@ -260,8 +277,84 @@ def compare_bmu(torch, kb, name, x, w):
         if same2.any() else 0.0
     require((np.abs(t[3] - tp[3]) <= tol)[same2].all(), f"{name}: K2 values disagree")
     print(f"{name}: K1 {len(diff1)} near-tie index differences of {n}, max|dv| {err1:.3g}; "
-          f"K2 {len(diff2)} near-tie differences, max|dv| {err2:.3g}")
-    return err1, err2, (a, w_aug, xy), i_k
+          f"K2 {len(diff2)} near-tie differences, max|dv| {err2:.3g}; K1 launches bitwise "
+          "equal, its first place K2's")
+    return err1, err2, (a, w_aug, xy), i_k, laid
+
+
+def _mm_f32(torch):
+    """One bf16 cuBLAS product with an f32 output, and its label:
+    ``torch.mm(..., out_dtype=torch.float32)`` where the installed torch
+    takes it, else the bf16 product cast to f32."""
+    one = torch.ones((16, 16), dtype=torch.bfloat16, device="cuda")
+    try:
+        torch.mm(one, one, out_dtype=torch.float32)
+        return (lambda x, y: torch.mm(x, y, out_dtype=torch.float32),
+                "f32 output by torch.mm(out_dtype=float32)")
+    except (TypeError, RuntimeError):
+        return (lambda x, y: torch.mm(x, y).float(),
+                "bf16 output cast to f32: this torch's mm takes no out_dtype")
+
+
+def _check_layout(torch, kb):
+    """The layout pre-pass on the card bit for bit against its plain index
+    map: the flagship samples' A and codebook rows (vector and strided
+    reads), a ragged operand and a strided one with K off the chunk
+    depth, in both tile heights."""
+    rng = np.random.RandomState(12)
+    f = FLAGSHIP
+    cb = kb.PackedCodebook(torch.from_numpy(rng.rand(f["x"] * f["y"], f["d"]).astype(
+        np.float32)).cuda())
+    a, w_aug, xy = cb.operands(torch.from_numpy(rng.rand(f["chunk"], f["d"]).astype(
+        np.float32)).cuda())
+    cases = [("flagship A", a, kb.GEMM_BM), ("flagship codebook", w_aug[:, :xy].T, kb.K1_BN),
+             ("ragged 1000x32", a[:1000, :32], kb.GEMM_BM),
+             ("strided 333x37", torch.randn(37, 333, device="cuda").to(torch.bfloat16).T,
+              kb.K3_BN)]
+    for label, t, trows in cases:
+        got, want = kb.lay_out(t, trows), kb.lay_out_plain(t, trows)
+        require(torch.equal(got.view(torch.int16), want.view(torch.int16)),
+                f"layout pre-pass, {label}: differs from the plain index map")
+    # the samples packed and laid out in one pass, against pack_samples /
+    # split3_samples laid out by the plain index map, centered or not
+    x = torch.from_numpy((rng.randn(f["chunk"], f["d"]) * 3).astype(np.float32)).cuda()
+    parts = ("packed", "bf16", "split2", "split3_hi", "split3_lo")
+    for rows, center in ((f["chunk"], cb.center), (1000, None)):
+        xs = x[:rows]
+        x_c = xs if center is None else xs - center[None, :]
+        for part in parts:
+            got = kb.lay_out_samples(xs, center, part)
+            want = kb.lay_out_plain(kb._sample_operand_plain(x_c, part), kb.GEMM_BM)
+            require(torch.equal(got.view(torch.int16), want.view(torch.int16)),
+                    f"packing pre-pass, {part}, {rows} rows: differs from the plain version")
+    print(f"layout pre-pass: bitwise equal to the plain index map on {len(cases)} operands; "
+          f"the samples' packing pre-pass on {2 * len(parts)} (modes x centering)")
+
+
+def _check_k1_norm_p4(torch, kb, x, w):
+    """K1 under the norm_p p = 4 expansion in mode packed (K = 976) on the
+    flagship chunk against its plain version on the same operands: winners
+    equal up to f32 ties of the operands, values within the f32
+    accumulation bound; timed. Returns the max value error."""
+    xt, wt = torch.from_numpy(x).cuda(), torch.from_numpy(w).cuda()
+    cb = kb.NormPEvenCodebook(wt, 4, "packed")
+    a, w_aug, xy = cb.operands(xt)
+    i_k, v_k = cb.argmin(xt)
+    i_p, v_p = kb.bmu_argmin_plain(a, w_aug, xy)
+    torch.cuda.synchronize()
+    diff = np.nonzero((i_k != i_p).cpu().numpy())[0]
+    _check_operand_ties("K1 norm_p p=4 packed", diff, a, w_aug, i_k.cpu().numpy(),
+                        i_p.cpu().numpy())
+    same = i_k == i_p
+    with_ties = (a.float().abs() @ w_aug[:, :xy].float().abs()).amax(1)
+    tol = 2 * a.shape[1] * F32_U * with_ties
+    err = (v_k - v_p).abs()
+    require(bool((err <= tol)[same].all()), "K1 norm_p p=4 packed: values disagree")
+    laid = cb._gemm.laid()[0]
+    ms = cuda_ms(torch, lambda: kb.bmu_argmin(a, w_aug, xy, w_laid=laid))
+    print(f"K1 norm_p p=4 packed ({x.shape[0]}x{xy}, K = {a.shape[1]}): {len(diff)} tie index "
+          f"differences, max|dv| {float(err[same].max()):.3g}; {ms:.4f} ms (CUDA events)")
+    return float(err[same].max())
 
 
 def compare_stats(torch, ks, name, x, m, idx, xy, dtype=None):
@@ -391,7 +484,8 @@ def phase_kernels(torch, card):
     f = FLAGSHIP
     x = rng.rand(f["chunk"], f["d"]).astype(np.float32)
     w = rng.rand(f["x"] * f["y"], f["d"]).astype(np.float32)
-    err1, err2, ops, idx = compare_bmu(torch, kb, "flagship 16384x16384 D=64", x, w)
+    _check_layout(torch, kb)
+    err1, err2, ops, idx, laid = compare_bmu(torch, kb, "flagship 16384x16384 D=64", x, w)
 
     xr = rng.rand(1000, 5).astype(np.float32)
     wr = (rng.rand(7 * 13, 5) * 2 - 1).astype(np.float32)
@@ -404,22 +498,50 @@ def phase_kernels(torch, card):
     wt = np.zeros((2100, 3), np.float32)
     wt[7] = 5
     wt[1500] = 5
-    *_, (a, w_aug, xy), _ = compare_bmu(torch, kb, "tie fixture", xt, wt)
+    *_, (a, w_aug, xy), _, _ = compare_bmu(torch, kb, "tie fixture", xt, wt)
     i1, _, i2, v2 = (u.cpu().numpy() for u in kb.bmu_top2(a, w_aug, xy))
     i0, _ = kb.bmu_argmin(a, w_aug, xy)
     require(i0.cpu().numpy().tolist() == [0, 7, 0, 0], f"tie fixture: K1 {i0.tolist()}")
     require(i1.tolist() == [0, 7, 0, 0] and i2.tolist() == [1, 1500, 1, 1],
             f"tie fixture: K2 {i1.tolist()} {i2.tolist()}")
 
+    err4 = _check_k1_norm_p4(torch, kb, x, w)
+    err1 = max(err1, err4)
+
+    # K1 as the main path calls it: the codebook laid out once per epoch,
+    # the samples' A laid out in the call
+    a, w_aug, xy = ops
+    mm_f32, mm_label = _mm_f32(torch)
     timings = {
-        "bmu_argmin": (cuda_ms(torch, lambda: kb.bmu_argmin(*ops)),
-                       cuda_ms(torch, lambda: kb.bmu_argmin_plain(*ops)), None),
+        "bmu_argmin": (cuda_ms(torch, lambda: kb.bmu_argmin(*ops, w_laid=laid)),
+                       cuda_ms(torch, lambda: kb.bmu_argmin_plain(*ops)),
+                       cuda_ms(torch, lambda: mm_f32(a, w_aug[:, :xy]).argmin(1))),
         "bmu_top2": (cuda_ms(torch, lambda: kb.bmu_top2(*ops)),
                      cuda_ms(torch, lambda: kb.bmu_top2_plain(*ops)), None),
     }
     for name, (ms, plain, _) in timings.items():
         print(f"time {name} at the flagship chunk: kernel {ms:.4f} ms, plain {plain:.4f} ms "
               f"(CUDA events; {card})")
+    a_laid = kb.lay_out(a, kb.GEMM_BM)
+    cb = kb.PackedCodebook(torch.from_numpy(w).cuda())
+    xt = torch.from_numpy(x).cuda()
+    parts = {
+        "library (one bf16 cuBLAS product, " + mm_label + ", + argmin; a composition of "
+        "calls)": timings["bmu_argmin"][2],
+        "the search as an epoch runs it (PackedCodebook.argmin: centering, the samples "
+        "packed and laid out in one pass, K1)": cuda_ms(torch, lambda: cb.argmin(xt)),
+        "K1 laying the codebook out in the call too": cuda_ms(torch, lambda: kb.bmu_argmin(*ops)),
+        "the samples' layout pre-pass": cuda_ms(torch, lambda: kb.lay_out(a, kb.GEMM_BM)),
+        "the codebook's layout pre-pass": cuda_ms(
+            torch, lambda: kb.lay_out(w_aug[:, :xy].T, kb.K1_BN)),
+        "K1's kernel alone, A resident": cuda_ms(torch, lambda: kb._gemm_sm90(
+            "xps_gemm_argmin", (a_laid, laid), None, a.shape[0], a.shape[1], xy, True)),
+        "K1's kernel alone, A streamed": cuda_ms(torch, lambda: kb._gemm_sm90(
+            "xps_gemm_argmin", (a_laid, laid), None, a.shape[0], a.shape[1], xy, False)),
+    }
+    for label, ms in parts.items():
+        print(f"time bmu_argmin (K1) at the flagship chunk (K = {a.shape[1]}), {label}: "
+              f"{ms:.4f} ms (CUDA events; {card})")
     # bounds at the flagship chunk: the augmented GEMM's 2·N·XY·K operations
     # on the tensor cores
     a, w_aug, xy = ops
@@ -894,18 +1016,43 @@ def phase_mode_kernels(torch, card):
         print(f"{mode}: tie fixture (duplicates at 7 and 1500) keeps the first index")
 
     o3 = ops["split3"]
-    timings["bmu_split3"] = (cuda_ms(torch, lambda: kb.bmu_split3(*o3)),
-                             cuda_ms(torch, lambda: kb.bmu_split3_plain(*o3)), None)
     n, k = o3[0].shape
     xy = o3[5]
+    laid3 = kb.PackedCodebook(torch.from_numpy(w).cuda(), "split3").laid()
+    once = kb.bmu_split3(*o3, w_laid=laid3)
+    for again in (kb.bmu_split3(*o3), kb.PackedCodebook(torch.from_numpy(w).cuda(), "split3")
+                  .argmin(torch.from_numpy(x).cuda())):
+        require(torch.equal(once[0], again[0]) and torch.equal(
+            once[1].view(torch.int32), again[1].view(torch.int32)),
+            "split3 flagship: K3 launches (codebook laid out once / per call, samples "
+            "packed in one pass) differ in bits")
+    mm_f32, mm_label = _mm_f32(torch)
+    xh, xl, wh, wl, w_sq, _ = o3
+
+    def library():
+        cross = (mm_f32(xh, wh[:, :xy]) + mm_f32(xh, wl[:, :xy])) + mm_f32(xl, wh[:, :xy])
+        return (-2.0 * cross + w_sq[None, :xy]).argmin(1)
+
+    timings["bmu_split3"] = (cuda_ms(torch, lambda: kb.bmu_split3(*o3, w_laid=laid3)),
+                             cuda_ms(torch, lambda: kb.bmu_split3_plain(*o3)),
+                             cuda_ms(torch, library))
+    x_laid = [kb.lay_out(t, kb.GEMM_BM) for t in (xh, xl)]
+    for label, resident in (("A resident", True), ("A streamed", False)):
+        ms = cuda_ms(torch, lambda: kb._gemm_sm90("xps_gemm_split3", (*x_laid, *laid3), w_sq, n,
+                                                  k, xy, resident))
+        print(f"time bmu_split3 (K3) at the flagship chunk, its kernel alone, {label}: "
+              f"{ms:.4f} ms (CUDA events; {card})")
     bounds["bmu_split3"] = bound(3 * 2.0 * n * xy * k / BF16_FLOPS,
                                  2 * 2 * (n * k + k * o3[2].shape[1]) + 4 * xy + 8 * n)
     errs["bmu_split3"] = errs.pop("split3")
     print(f"time bmu_split3 (K3) at the flagship chunk: kernel {timings['bmu_split3'][0]:.4f} "
-          f"ms, plain {timings['bmu_split3'][1]:.4f} ms (CUDA events; {card})")
+          f"ms, plain {timings['bmu_split3'][1]:.4f} ms, library (three bf16 cuBLAS products, "
+          f"{mm_label}, summed (hh + hl) + lh, -2 cross + w_sq, argmin; a composition of "
+          f"calls) {timings['bmu_split3'][2]:.4f} ms (CUDA events; {card})")
     for mode in ("bf16", "split2"):
         a, w_aug, xy = ops[mode]
-        t1 = (cuda_ms(torch, lambda: kb.bmu_argmin(a, w_aug, xy)),
+        laid = kb.PackedCodebook(torch.from_numpy(w).cuda(), mode).laid()[0]
+        t1 = (cuda_ms(torch, lambda: kb.bmu_argmin(a, w_aug, xy, w_laid=laid)),
               cuda_ms(torch, lambda: kb.bmu_argmin_plain(a, w_aug, xy)))
         b = bound(2.0 * a.shape[0] * xy * a.shape[1] / BF16_FLOPS, 0)[0]
         print(f"time bmu_argmin (K1) under {mode} operands (K={a.shape[1]}) at the flagship "
@@ -1365,6 +1512,7 @@ def phase_margin_compact(torch, card):
     packed = kb.PackedCodebook(torch.from_numpy(w).cuda())
     a_p, w_aug_p, _ = packed.operands(xt)
     a_buf = a_p[:cap].contiguous()
+    laid_p = packed.laid()[0]
     t = {
         "margin search": cuda_ms(torch, lambda: cb.argmin(xt)),
         "its operands (centering, bf16 packing)": cuda_ms(torch, lambda: cb.operands(xt)),
@@ -1374,8 +1522,9 @@ def phase_margin_compact(torch, card):
             i_b, v_b, v2_b, xc, cb.w, cb.w_sq, cb.w_aug_packed, kb.bmu_argmin)),
         "gate": cuda_ms(torch, lambda: kb.margin_suspects(v_b, v2_b, xc, cb.w)),
         f"packed K1 over the {cap}-row buffer": cuda_ms(
-            torch, lambda: kb.bmu_argmin(a_buf, w_aug_p, xy)),
-        f"packed K1 over all {n} rows": cuda_ms(torch, lambda: kb.bmu_argmin(a_p, w_aug_p, xy)),
+            torch, lambda: kb.bmu_argmin(a_buf, w_aug_p, xy, w_laid=laid_p)),
+        f"packed K1 over all {n} rows": cuda_ms(
+            torch, lambda: kb.bmu_argmin(a_p, w_aug_p, xy, w_laid=laid_p)),
     }
     for label, ms in t.items():
         print(f"time {label} at the flagship chunk: {ms:.4f} ms (CUDA events; {card})")
@@ -1485,7 +1634,20 @@ def phase_kblock(torch, card):
         a, w_aug, _ = ops
         i_k, v_k = out[(shape, mode, kbk)]
         i_p, v_p = kb.bmu_argmin_kb_plain(*ops, kbk)
-        i_1, v_1 = kb.bmu_argmin(*ops)
+        laid = cb.laid()[0]
+        i_1, v_1 = kb.bmu_argmin(*ops, w_laid=laid)
+        if kbk == 512:  # K1 against its own plain version, once per shape and mode
+            i_1p, v_1p = kb.bmu_argmin_plain(*ops)
+            d1 = np.nonzero((i_1 != i_1p).cpu().numpy())[0]
+            _kb_flips(f"K1 {mode} {n}x{xy} D={d} vs plain", d1, mode,
+                      (x - cb.center.cpu().numpy()).astype(np.float64),
+                      (w - cb.center.cpu().numpy()).astype(np.float64), a, w_aug,
+                      i_1.cpu().numpy(), i_1p.cpu().numpy())
+            same1 = i_1 == i_1p
+            e1 = float((v_1 - v_1p).abs()[same1].max())
+            print(f"K1 {mode} {n}x{xy} D={d} (K = {a.shape[1]}): {len(d1)} tie index "
+                  f"differences against its plain version, max|dv| {e1:.3g}")
+            del i_1p, v_1p
         torch.cuda.synchronize()
         i_k, v_k, i_p, v_p, i_1 = (u.cpu().numpy() for u in (i_k, v_k, i_p, v_p, i_1))
         require(i_k.shape == (n,) and np.isfinite(v_k).all(), f"K1-kb {shape}: malformed")
@@ -1505,7 +1667,7 @@ def phase_kblock(torch, card):
         e = float(np.abs(v_k - v_p)[same].max())
         err = max(err, e)
         t = (cuda_ms(torch, lambda: kb.bmu_argmin_kb(*ops, kbk)),
-             cuda_ms(torch, lambda: kb.bmu_argmin(*ops)),
+             cuda_ms(torch, lambda: kb.bmu_argmin(*ops, w_laid=laid)),
              cuda_ms(torch, lambda: kb.bmu_argmin_kb_plain(*ops, kbk), reps=3, warmup=1))
         k = a.shape[1]
         b = bound(2.0 * n * xy * k / BF16_FLOPS, 2 * (n * k + k * w_aug.shape[1]) + 8 * n)

@@ -292,9 +292,10 @@ def test_kernel_build_is_lazy():
 
     assert build._lib is None
     assert set(build.SOURCES) == {
-        "bmu.cu", "stats.cu", "highest.cu", "elementwise.cu", "manhattan.cu", "fused_stats.cu"
+        "gemm_sm90.cu", "bmu.cu", "stats.cu", "highest.cu", "elementwise.cu", "manhattan.cu",
+        "fused_stats.cu",
     }
-    assert build.HEADERS == ("tile_argmin.cuh", "gemm_bmu.cuh")
+    assert build.HEADERS == ("tile_argmin.cuh", "gemm_bmu.cuh", "sm90.cuh")
     csrc = Path(kb.__file__).resolve().parents[2] / "csrc"
     for name in build.SOURCES + build.HEADERS:
         assert (csrc / name).is_file()

@@ -23,8 +23,9 @@ tensors the kernel wrappers always run the plain versions.
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -36,6 +37,7 @@ from .ops.kernels import elementwise as kel
 from .ops.kernels import stats as kstats
 from .ops.kernels import tile as ktile
 from .ops.neighborhoods import apply_operator, neighborhood_operator
+from .utils.envflags import env_flag
 
 _F32 = torch.float32
 
@@ -54,13 +56,37 @@ __all__ = [
 _MODES = ("packed", "bf16", "split2", "split3", "highest", "margin")
 
 
+class _FromEnv:
+    """Sentinel default of ``SomSpec``'s kernel-config fields: resolve from
+    the ``XPYSOM_*`` env switches at construction (the JAX package's
+    ``core.FROM_ENV``). Never survives ``__post_init__``."""
+
+    __slots__ = ()
+
+    def __repr__(self):  # pragma: no cover - debugging aid
+        return "FROM_ENV"
+
+
+FROM_ENV = _FromEnv()
+
+
 @dataclass(frozen=True)
 class SomSpec:
     """Static SOM configuration (the reference constructor surface); the
     codebook lives outside. ``bmu_precision`` is validated against the
     JAX package's modes and resolved as it resolves them: ``None`` means
     ``'highest'`` for norm_p (its expansion cancels below exact
-    precision) and ``'packed'`` otherwise. Every mode is served."""
+    precision) and ``'packed'`` otherwise. Every mode is served.
+
+    Omitted kernel-config fields (the ``FROM_ENV`` default) are read from
+    the env switches ONCE, here, as the JAX ``SomSpec`` reads them:
+    ``XPYSOM_BMU_PRECISION`` (an unknown value warns and keeps the
+    default; under norm_p a value other than ``'highest'`` warns and keeps
+    ``'highest'``) and ``XPYSOM_TPU_NO_PALLAS`` (a truthy value means
+    ``use_kernels=False``: the plain versions, as it means the plain-XLA
+    formulation in JAX). A concrete value, ``None`` included, is
+    env-blind. ``XPYSOM_BMU_TILES`` is TPU-only: the port's kernels take
+    no tiles."""
 
     x: int
     y: int
@@ -76,12 +102,28 @@ class SomSpec:
     distance: str = "euclidean"
     distance_kwargs: Tuple[Tuple[str, object], ...] = ()
     compact_support: bool = False
-    bmu_precision: Optional[str] = None  # None = 'highest' for norm_p, else 'packed'
-    use_kernels: Optional[bool] = None  # None = True
+    bmu_precision: object = FROM_ENV  # None = 'highest' for norm_p, else 'packed'
+    use_kernels: object = FROM_ENV  # None = True
 
     def __post_init__(self):
-        if self.bmu_precision is None:
-            mode = "highest" if self.distance == "norm_p" else "packed"
+        default = "highest" if self.distance == "norm_p" else "packed"
+        if self.use_kernels is FROM_ENV:
+            object.__setattr__(self, "use_kernels", not env_flag("XPYSOM_TPU_NO_PALLAS"))
+        if self.bmu_precision is FROM_ENV:
+            mode = kbmu.env_mode(default)
+            if self.distance == "norm_p" and mode != "highest":
+                # a process-wide env var set for a euclidean experiment
+                # must not degrade norm_p's exactness; only an explicit
+                # bmu_precision= may
+                warnings.warn(
+                    f"XPYSOM_BMU_PRECISION={mode!r} ignored for norm_p "
+                    "activations (the binomial expansion cancels below "
+                    "exact precision); using 'highest' — pass "
+                    "bmu_precision= explicitly to override"
+                )
+                mode = "highest"
+        elif self.bmu_precision is None:
+            mode = default
         else:
             mode = str(self.bmu_precision).lower()
             if mode not in _MODES:

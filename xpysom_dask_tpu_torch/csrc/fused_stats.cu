@@ -10,8 +10,9 @@
 // launch in two phases around one grid-wide barrier:
 //   * phase 1: the grid is persistent (a cooperative launch of as many
 //     blocks as can be resident at once, so every block reaches the
-//     barrier); each block runs K1's one-block search (gemm_bmu.cuh, the
-//     same code as xps_bmu_argmin) over 64-row blocks blockIdx.x,
+//     barrier); each block runs the WMMA one-block search (gemm_bmu.cuh,
+//     K1's first version; K1 itself now runs on wgmma, gemm_sm90.cu, with
+//     the same sums bit for bit) over 64-row blocks blockIdx.x,
 //     blockIdx.x + gridDim.x, ... and writes each row's winner to device
 //     memory. The launch asks for enough dynamic shared memory that only
 //     ceil(row blocks / SMs) blocks fit on an SM: with room for four, the
@@ -33,7 +34,8 @@
 // one lane, starting from 0.0, over that node's rows in row order, with
 // explicitly rounded multiply and add: the row-serial order of the Pallas
 // kernel and of K9 (stats.cu), so acc equals K9's on the same winners bit
-// for bit, on every run and at any grid size; the winners are K1's bits.
+// for bit, on every run and at any grid size; the winners are K1's bits
+// (chip_smoke.py checks both).
 // No block waits on a flag of another block: the only cross-block wait is
 // the cooperative grid barrier, whose launch fails unless every block is
 // resident.
@@ -43,9 +45,10 @@
 // (4.3 MB at the flagship) and each block scans the N winners from L2.
 // A node that takes a long run of rows (early training) serializes in
 // one warp: the design's cost under skew. On one H100 (chip_smoke.py) a
-// uniform flagship chunk takes 1.33 ms against K1 + K9's 1.42, the first
+// uniform flagship chunk took 1.33 ms against K1 + K9's 1.42, the first
 // chunk under the initial codebook (1230 rows on one node) 1.70 against
-// 1.54.
+// 1.54, when K1 was the WMMA search; against the wgmma K1 + K9 it takes
+// 1.3405 against 0.4252 and 1.7004 against 0.4485.
 
 #include <cooperative_groups.h>
 
@@ -76,15 +79,15 @@ fused_stats_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __r
                    float* __restrict__ acc) {
   extern __shared__ __align__(128) unsigned char smem[];
   Stage st;
-  st.sa[0] = st.sa[1] = reinterpret_cast<__nv_bfloat16*>(smem);
-  st.sb[0] = st.sb[1] = st.sa[0] + A_ELEMS;
-  st.sd = reinterpret_cast<float*>(st.sb[0] + B_ELEMS);
+  st.sa = reinterpret_cast<__nv_bfloat16*>(smem);
+  st.sb = st.sa + A_ELEMS;
+  st.sd = reinterpret_cast<float*>(st.sb + B_ELEMS);
 
   // phase 1: the winners
   const int row_blocks = (n + BM - 1) / BM;
   for (int rb = blockIdx.x; rb < row_blocks; rb += gridDim.x)
-    gemm_bmu_rows<Products::PACKED, false>(st, rb * BM, a, nullptr, w, nullptr, nullptr, n, k,
-                                           xy, ldw, 0, idx, val, nullptr, nullptr);
+    gemm_bmu_rows<Products::PACKED, false>(st, rb * BM, a, w, n, k, xy, ldw, 0, idx, val,
+                                           nullptr, nullptr);
   cg::this_grid().sync();
 
   // phase 2: the statistics of node ranges

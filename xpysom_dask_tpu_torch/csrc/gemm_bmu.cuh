@@ -1,10 +1,11 @@
-// The GEMM-form BMU search of one 64-row block for Hopper (sm_90a), shared
-// by K1, K1-kb, K2 and K3 (bmu.cu) and by the first phase of K10
-// (fused_stats.cu).
+// The WMMA GEMM-form BMU search of one 64-row block for Hopper (sm_90a),
+// shared by K1-kb and K2 (bmu.cu) and by the first phase of K10
+// (fused_stats.cu). K1 and K3 moved to wgmma (gemm_sm90.cu); these three
+// are the next candidates for that pipeline.
 //
 // The block's rows are searched against ALL codebook tiles; the template is
 // parametrised by its product set:
-//   * PACKED (K1, K2, K10): one K-chain d[n, j] = A[n, :] . W[:, j], where
+//   * PACKED (K2, K10): one K-chain d[n, j] = A[n, :] . W[:, j], where
 //     A = [xh | xl | xh | 1 1 1] and W = [wh; wh; wl; s1; s2; s3] (or the
 //     bf16/split2 operands) are bf16 splits prepared by the wrapper
 //     (xpysom_dask_tpu_torch/ops/kernels/bmu.py), so d is the partial squared
@@ -13,15 +14,9 @@
 //     (a multiple of BK; K is padded to a multiple of it). Each slab is
 //     accumulated into a FRESH fragment set, which is then added into the
 //     tile's running f32 sum with __fadd_rn and zeroed: the Pallas kernel's
-//     association d_acc += dot(a_k, w_k), not K1's one chain;
-//   * SPLIT3 (K3): three SEPARATE f32 accumulations of the bf16 splits of the
-//     centered samples (xh, xl) and of the codebook's transpose (wh, wl),
-//     summed in the JAX kernel's order, cross = (xh.wh + xh.wl) + xl.wh,
-//     then d = -2 * cross + w_sq with the f32 |w|^2. The order is the mode's
-//     documented behaviour: it can flip float64 near-ties relative to the
-//     packed single chain, so it is not folded into one K-chain.
-// The search returns the first-index argmin of each row and its value (K1,
-// K1-kb, K3) or the two best (value, index) pairs in stable-argsort order
+//     association d_acc += dot(a_k, w_k), not K1's one chain.
+// The search returns the first-index argmin of each row and its value
+// (K1-kb, K10) or the two best (value, index) pairs in stable-argsort order
 // (K2). The (N, XY) distance matrix never reaches device memory.
 //
 // Design (simple first version):
@@ -32,17 +27,15 @@
 //     WMMA (m16n16k16, f32 accumulation), each warp holding 2 x 2 fragments
 //     of every product (32 x 32 per warp), with the operands staged through
 //     shared memory in BK-deep chunks; bf16 x bf16 products are exact in f32;
-//   * SPLIT3 and KBLOCKED add fragments elementwise in registers (the same
-//     fragment type has the same element layout) with explicit rounding;
+//   * KBLOCKED adds fragments elementwise in registers (the same fragment
+//     type has the same element layout) with explicit rounding;
 //   * the f32 tile goes to shared memory and four threads per row fold it
 //     into a running (value, index) minimum. Ties: within a tile the
 //     lexicographic (value, index) order keeps the lowest index; across
 //     tiles a strict '<' keeps the earlier tile's winner. K2 keeps two such
 //     pairs, so a duplicate minimum is the runner-up.
-// Shared memory: PACKED's and KBLOCKED's staged chunks and the f32 tile fit
-// in 48 KB side by side; SPLIT3 stages twice the operands, so its tile
-// aliases the staging buffers and one more barrier closes each tile's
-// finish. The caller owns the buffers (Stage).
+// Shared memory: the staged chunks and the f32 tile fit in 48 KB side by
+// side. The caller owns the buffers (Stage).
 // Bounds: rows >= n are neither read nor written; codebook columns >= xy
 // are never candidates; depth past k is zero-filled.
 
@@ -75,26 +68,21 @@ constexpr int STATIC_SMEM = 48 * 1024;
 static_assert((A_ELEMS * sizeof(__nv_bfloat16)) % 32 == 0, "A buffer alignment");
 static_assert((B_ELEMS * sizeof(__nv_bfloat16)) % 32 == 0, "B buffer alignment");
 
-enum class Products { PACKED, KBLOCKED, SPLIT3 };
+enum class Products { PACKED, KBLOCKED };
 
-// Shared-memory layout of a product set: OPS staged (A, W) operand pairs
-// and the f32 tile, which aliases the staging when both do not fit; ACCS
-// fragment sets per warp.
+// ACCS fragment sets per warp of a product set
 template <Products P>
 struct Layout {
-  static constexpr int OPS = P == Products::SPLIT3 ? 2 : 1;
-  static constexpr int ACCS = P == Products::SPLIT3 ? 3 : (P == Products::KBLOCKED ? 2 : 1);
-  static constexpr int STAGE = OPS * (A_ELEMS + B_ELEMS) * (int)sizeof(__nv_bfloat16);
-  static constexpr bool ALIAS = STAGE + D_BYTES > STATIC_SMEM;
-  static constexpr int BYTES = ALIAS ? (STAGE > D_BYTES ? STAGE : D_BYTES) : STAGE + D_BYTES;
-  static_assert(BYTES <= STATIC_SMEM, "static shared memory");
+  static constexpr int ACCS = P == Products::KBLOCKED ? 2 : 1;
+  static_assert((A_ELEMS + B_ELEMS) * (int)sizeof(__nv_bfloat16) + D_BYTES <= STATIC_SMEM,
+                "static shared memory");
 };
 
-// The shared buffers of one block: the staged operand chunks (sa, sb; the
-// second pair only under SPLIT3) and the f32 tile sd.
+// The shared buffers of one block: the staged operand chunks (sa, sb) and
+// the f32 tile sd.
 struct Stage {
-  __nv_bfloat16* sa[2];
-  __nv_bfloat16* sb[2];
+  __nv_bfloat16* sa;
+  __nv_bfloat16* sb;
   float* sd;
 };
 
@@ -127,28 +115,20 @@ __device__ __forceinline__ void merge_top2(float& v, int& i, float& v2, int& i2,
 }
 
 // Search rows row0 .. row0 + BM - 1 against every codebook column and write
-// their winners. a, w: the (first) operand pair; a_lo, w_lo, w_sq: SPLIT3's
-// low halves and |w|^2 (unused otherwise); kblock: KBLOCKED's slab depth, a
+// their winners. a, w: the operands; kblock: KBLOCKED's slab depth, a
 // multiple of BK that divides k (unused otherwise). Every thread of the
 // block calls it. It may be called again at once on the same buffers;
 // other uses of them need a barrier first (the finish still reads sd).
 template <Products P, bool TOP2>
 __device__ __forceinline__ void gemm_bmu_rows(
     const Stage& st, int row0, const __nv_bfloat16* __restrict__ a,
-    const __nv_bfloat16* __restrict__ a_lo, const __nv_bfloat16* __restrict__ w,
-    const __nv_bfloat16* __restrict__ w_lo, const float* __restrict__ w_sq, int n, int k,
-    int xy, int ldw, int kblock, int* __restrict__ idx_out, float* __restrict__ val_out,
-    int* __restrict__ idx2_out, float* __restrict__ val2_out) {
+    const __nv_bfloat16* __restrict__ w, int n, int k, int xy, int ldw, int kblock,
+    int* __restrict__ idx_out, float* __restrict__ val_out, int* __restrict__ idx2_out,
+    float* __restrict__ val2_out) {
   using L = Layout<P>;
-  constexpr bool SPLIT3 = P == Products::SPLIT3;
   constexpr bool KB = P == Products::KBLOCKED;
-  // indices of the low operand, of the hl and lh accumulators (SPLIT3) and
-  // of the set the products go to (KBLOCKED: the fresh slab set 1; 0
-  // otherwise); 0 where a product set never reaches them
-  constexpr int LO = SPLIT3 ? 1 : 0, HL = SPLIT3 ? 1 : 0, LH = SPLIT3 ? 2 : 0;
+  // the set the products go to (KBLOCKED: the fresh slab set 1; else 0)
   constexpr int CH = KB ? 1 : 0;
-  const __nv_bfloat16* ga[2] = {a, a_lo};
-  const __nv_bfloat16* gw[2] = {w, w_lo};
   float* sd = st.sd;
 
   const int tid = threadIdx.x;
@@ -167,8 +147,8 @@ __device__ __forceinline__ void gemm_bmu_rows(
   const int ntiles = (xy + BN - 1) / BN;
   for (int j = 0; j < ntiles; ++j) {
     const int col0 = j * BN;
-    // acc[0]: the packed chain, hh, or KBLOCKED's running sum; acc[1]: hl
-    // or KBLOCKED's fresh slab; acc[2]: lh
+    // acc[0]: the packed chain or KBLOCKED's running sum; acc[1]:
+    // KBLOCKED's fresh slab
     FragC acc[L::ACCS][2][2];
 #pragma unroll
     for (int p = 0; p < L::ACCS; ++p)
@@ -179,18 +159,14 @@ __device__ __forceinline__ void gemm_bmu_rows(
 
     int slab = 0;  // KBLOCKED: depth accumulated in the fresh set
     for (int k0 = 0; k0 < k; k0 += BK) {
-      {  // A chunks: BM x BK, one 16-byte vector per thread and operand
+      {  // A chunk: BM x BK, one 16-byte vector per thread
         const int r = tid >> 2;
         const int kq = (tid & 3) * 8;
         const int gr = row0 + r;
         const int gk = k0 + kq;
-        const bool in = gr < n && gk < k;
-#pragma unroll
-        for (int s = 0; s < L::OPS; ++s) {
-          uint4 v = make_uint4(0u, 0u, 0u, 0u);
-          if (in) v = *reinterpret_cast<const uint4*>(ga[s] + (size_t)gr * k + gk);
-          *reinterpret_cast<uint4*>(st.sa[s] + r * LDA + kq) = v;
-        }
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (gr < n && gk < k) v = *reinterpret_cast<const uint4*>(a + (size_t)gr * k + gk);
+        *reinterpret_cast<uint4*>(st.sa + r * LDA + kq) = v;
       }
 #pragma unroll
       for (int it = 0; it < 2; ++it) {  // W chunks: BK x BN, two vectors each
@@ -199,41 +175,27 @@ __device__ __forceinline__ void gemm_bmu_rows(
         const int cq = (e & 15) * 8;
         const int gk = k0 + kr;
         const int gc = col0 + cq;
-        const bool in = gk < k && gc < ldw;
-#pragma unroll
-        for (int s = 0; s < L::OPS; ++s) {
-          uint4 v = make_uint4(0u, 0u, 0u, 0u);
-          if (in) v = *reinterpret_cast<const uint4*>(gw[s] + (size_t)gk * ldw + gc);
-          *reinterpret_cast<uint4*>(st.sb[s] + kr * LDB + cq) = v;
-        }
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (gk < k && gc < ldw) v = *reinterpret_cast<const uint4*>(w + (size_t)gk * ldw + gc);
+        *reinterpret_cast<uint4*>(st.sb + kr * LDB + cq) = v;
       }
       __syncthreads();
 #pragma unroll
       for (int kk = 0; kk < BK; kk += 16) {
         if (k0 + kk < k) {  // uniform over the block
-          FragA fa[L::OPS][2];
-          FragB fb[L::OPS][2];
+          FragA fa[2];
+          FragB fb[2];
 #pragma unroll
-          for (int s = 0; s < L::OPS; ++s) {
+          for (int fm = 0; fm < 2; ++fm)
+            wmma::load_matrix_sync(fa[fm], st.sa + (warp_m * 32 + fm * 16) * LDA + kk, LDA);
 #pragma unroll
-            for (int fm = 0; fm < 2; ++fm)
-              wmma::load_matrix_sync(fa[s][fm], st.sa[s] + (warp_m * 32 + fm * 16) * LDA + kk,
-                                     LDA);
-#pragma unroll
-            for (int fn = 0; fn < 2; ++fn)
-              wmma::load_matrix_sync(fb[s][fn], st.sb[s] + kk * LDB + warp_n * 32 + fn * 16,
-                                     LDB);
-          }
+          for (int fn = 0; fn < 2; ++fn)
+            wmma::load_matrix_sync(fb[fn], st.sb + kk * LDB + warp_n * 32 + fn * 16, LDB);
 #pragma unroll
           for (int fm = 0; fm < 2; ++fm)
 #pragma unroll
-            for (int fn = 0; fn < 2; ++fn) {
-              wmma::mma_sync(acc[CH][fm][fn], fa[0][fm], fb[0][fn], acc[CH][fm][fn]);
-              if constexpr (SPLIT3) {
-                wmma::mma_sync(acc[HL][fm][fn], fa[0][fm], fb[LO][fn], acc[HL][fm][fn]);
-                wmma::mma_sync(acc[LH][fm][fn], fa[LO][fm], fb[0][fn], acc[LH][fm][fn]);
-              }
-            }
+            for (int fn = 0; fn < 2; ++fn)
+              wmma::mma_sync(acc[CH][fm][fn], fa[fm], fb[fn], acc[CH][fm][fn]);
         }
       }
       __syncthreads();
@@ -254,32 +216,22 @@ __device__ __forceinline__ void gemm_bmu_rows(
         }
       }
     }
-    // to shared memory (SPLIT3: cross = (hh + hl) + lh, element by element;
-    // the chunk loop's last barrier has retired every staging read)
+    // to shared memory
 #pragma unroll
     for (int fm = 0; fm < 2; ++fm)
 #pragma unroll
-      for (int fn = 0; fn < 2; ++fn) {
-        if constexpr (SPLIT3) {
-#pragma unroll
-          for (int e = 0; e < acc[0][fm][fn].num_elements; ++e)
-            acc[0][fm][fn].x[e] = __fadd_rn(__fadd_rn(acc[0][fm][fn].x[e], acc[HL][fm][fn].x[e]),
-                                            acc[LH][fm][fn].x[e]);
-        }
+      for (int fn = 0; fn < 2; ++fn)
         wmma::store_matrix_sync(sd + (warp_m * 32 + fm * 16) * LDD + warp_n * 32 + fn * 16,
                                 acc[0][fm][fn], LDD, wmma::mem_row_major);
-      }
     __syncthreads();
 
-    // per-thread pass over its columns, in increasing index order; under
-    // SPLIT3, -2 * cross is exact, so d rounds once, as -2.0 * cross + w_sq
+    // per-thread pass over its columns, in increasing index order
     float tv = INFINITY, tv2 = INFINITY;
     int ti = INT_MAX, ti2 = INT_MAX;
     for (int c = fsub; c < BN; c += 4) {
       const int gc = col0 + c;
       if (gc >= xy) break;
-      const float s = sd[frow * LDD + c];
-      const float v = SPLIT3 ? __fadd_rn(-2.0f * s, w_sq[gc]) : s;
+      const float v = sd[frow * LDD + c];
       if (TOP2) {
         if (lex_less(v, gc, tv, ti)) {
           tv2 = tv;
@@ -316,11 +268,9 @@ __device__ __forceinline__ void gemm_bmu_rows(
       best = tv;
       besti = ti;
     }
-    // without aliasing, sd is rewritten only after the next tile's chunk
-    // loop, whose barriers every thread reaches after finishing this pass;
-    // with it, the next tile's staging overwrites sd. The same holds for a
-    // next call on the same buffers.
-    if constexpr (L::ALIAS) __syncthreads();
+    // sd is rewritten only after the next tile's chunk loop, whose
+    // barriers every thread reaches after finishing this pass; the same
+    // holds for a next call on the same buffers
   }
 
   const int gr = row0 + frow;

@@ -41,7 +41,8 @@
 // the first wgmma version, which copied with per-thread cp.async, took
 // 1.16 ms, bound by its copies.
 //
-// Design (built for reuse by the GEMM searches' later redesign):
+// Design (reused by K1 and K3, gemm_sm90.cu; the Hopper primitives are
+// shared in sm90.cuh):
 //   * one block of two warpgroups owns BM = 128 sample rows (64 each) and
 //     loops over all codebook tiles of BN = 128 rows, so nothing carries
 //     between blocks;
@@ -72,7 +73,11 @@
 
 #include <climits>
 
+#include "sm90.cuh"  // bulk copies, mbarriers, descriptors, fences
+
 namespace {
+
+using namespace xps_sm90;
 
 constexpr int BM = 128;       // sample rows per block (two warpgroups of 64)
 constexpr int BN = 128;       // codebook rows per tile
@@ -89,10 +94,6 @@ constexpr int SMEM_BYTES = STAGES * STAGE_FLOATS * 4;  // 128 KB
 constexpr int LBO_BYTES = 128;
 constexpr int SBO_BYTES = 128 * (BK / 4);
 static_assert(BM == 128 && BN == 128 && BK == 16, "the split's block layout");
-
-__device__ __forceinline__ bool lex_less(float va, int ia, float vb, int ib) {
-  return va < vb || (va == vb && ia < ib);
-}
 
 // round to TF32 (11 significant bits), to nearest with ties away from zero
 // (cvt.rna); .satfinite keeps a finite v within half a TF32 ulp of FLT_MAX
@@ -128,35 +129,6 @@ __global__ void split_tf32_kernel(const float* __restrict__ v, int rows, int d, 
   }
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// one contiguous global block into shared memory, completion counted in
-// bytes on the mbarrier
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src, int bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred P;\nWAIT_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P, [%0], %1;\n"
-      "@!P bra WAIT_%=;\n}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ uint64_t smem_desc(const float* p) {
-  const uint64_t addr = smem_addr(p);
-  return ((addr & 0x3ffff) >> 4) | (static_cast<uint64_t>(LBO_BYTES >> 4) << 16) |
-         (static_cast<uint64_t>(SBO_BYTES >> 4) << 32);
-}
-
 // d (64 rows x 128 codebook rows of the warpgroup, f32) += A . B^T, both
 // operands TF32 from shared memory, K = 8
 __device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da, uint64_t db) {
@@ -182,12 +154,6 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da, uint64_t
       : "l"(da), "l"(db));
 }
 
-// keeps the compiler from moving accumulator accesses across the async ops
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 __global__ void __launch_bounds__(THREADS, 1)
 bmu_highest_kernel(const float* __restrict__ xh, const float* __restrict__ xl,
                    const float* __restrict__ wh, const float* __restrict__ wl,
@@ -209,9 +175,8 @@ bmu_highest_kernel(const float* __restrict__ xh, const float* __restrict__ xl,
 
   if (tid == 0) {
 #pragma unroll
-    for (int s = 0; s < STAGES; ++s)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&full[s])));
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -223,9 +188,7 @@ bmu_highest_kernel(const float* __restrict__ xh, const float* __restrict__ xl,
     uint64_t* bar = &full[it % STAGES];
     const size_t xo = ((size_t)blockIdx.x * nk + it % nk) * TILE_FLOATS;
     const size_t wo = (size_t)it * TILE_FLOATS;  // (it / nk) * nk + it % nk
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
-                 "r"(4 * TILE_FLOATS * 4)
-                 : "memory");
+    mbar_expect_tx(bar, 4 * TILE_FLOATS * 4);
     bulk_copy(s, xh + xo, TILE_FLOATS * 4, bar);
     bulk_copy(s + TILE_FLOATS, xl + xo, TILE_FLOATS * 4, bar);
     bulk_copy(s + 2 * TILE_FLOATS, wh + wo, TILE_FLOATS * 4, bar);
@@ -244,7 +207,7 @@ bmu_highest_kernel(const float* __restrict__ xh, const float* __restrict__ xl,
     // this warpgroup's wgmmas of stage it - 2 are retired (those of it - 1
     // may still run); then every warpgroup is, and stage it + 2 takes
     // their buffer
-    asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+    wgmma_wait<1>();
     __syncthreads();
     if (it + AHEAD < total) load(it + AHEAD);
     mbar_wait(&full[it % STAGES], (it / STAGES) & 1);
@@ -255,20 +218,21 @@ bmu_highest_kernel(const float* __restrict__ xh, const float* __restrict__ xl,
     const float* b_hi = s + 2 * TILE_FLOATS;
     const float* b_lo = s + 3 * TILE_FLOATS;
     const int kc = it % nk;
+    auto desc = [](const float* p) { return smem_desc(p, LBO_BYTES, SBO_BYTES); };
     fence_acc(acc);
-    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+    wgmma_fence();
     // each 8-deep step is two core matrices along K
 #pragma unroll
     for (int ks = 0; ks < BK; ks += 8) {
       const int off = (ks / 4) * (LBO_BYTES / 4);
-      wgmma_tf32(acc, smem_desc(a_lo + off), smem_desc(b_hi + off));
-      wgmma_tf32(acc, smem_desc(a_hi + off), smem_desc(b_lo + off));
-      wgmma_tf32(acc, smem_desc(a_hi + off), smem_desc(b_hi + off));
+      wgmma_tf32(acc, desc(a_lo + off), desc(b_hi + off));
+      wgmma_tf32(acc, desc(a_hi + off), desc(b_lo + off));
+      wgmma_tf32(acc, desc(a_hi + off), desc(b_hi + off));
     }
-    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    wgmma_commit();
 
     if (kc == nk - 1) {
-      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+      wgmma_wait<0>();
       fence_acc(acc);
       // finish the tile: columns j*8 + 2t + e of rows row_w + 8h
       const int col0 = (it / nk) * BN;
@@ -318,7 +282,7 @@ bmu_highest_kernel(const float* __restrict__ xh, const float* __restrict__ xl,
       for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
     }
   }
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+  wgmma_wait<0>();
 
   if (t == 0) {
 #pragma unroll

@@ -112,6 +112,12 @@ class XPySom:
             (default 'highest' for norm_p, else 'packed'); all six modes
             are served ('margin' is refused with norm_p).
 
+        The defaults of ``bmu_precision`` and ``use_kernels`` can be
+        overridden by the env switches ``XPYSOM_BMU_PRECISION`` and
+        ``XPYSOM_TPU_NO_PALLAS`` (truthy: ``use_kernels=False``), read ONCE
+        here at construction as the JAX package reads them; explicit
+        arguments always win. ``XPYSOM_BMU_TILES`` is TPU-only and ignored.
+
         activation_distance : 'euclidean', 'cosine', 'manhattan',
             'norm_p' (``activation_distance_kwargs={'p': ...}``, default
             p=2) or a ``_no_opt`` name. The BMU search routes as the JAX
@@ -173,10 +179,16 @@ class XPySom:
         self._activation_distance_kwargs = dict(activation_distance_kwargs)
         dist_obj = DistanceFunction(activation_distance, self._activation_distance_kwargs)
 
-        # validation and resolution live at the one boundary,
-        # SomSpec.__post_init__ (the norm_p rules need the distance)
-        cfg = SomSpec(1, 1, 1, 1.0, 1.0, 0.5, 0.01, distance=activation_distance,
-                      bmu_precision=bmu_precision, use_kernels=use_kernels)
+        # validation, resolution and the env reads live at the one
+        # boundary, SomSpec.__post_init__ (the norm_p rules need the
+        # distance); an omitted argument is read from the env there, once,
+        # and the resolved values are stored, so a later env change never
+        # reaches this model
+        cfg = SomSpec(
+            1, 1, 1, 1.0, 1.0, 0.5, 0.01, distance=activation_distance,
+            bmu_precision=core.FROM_ENV if bmu_precision is None else bmu_precision,
+            use_kernels=core.FROM_ENV if use_kernels is None else use_kernels,
+        )
         self._bmu_precision = cfg.bmu_precision
         self._use_kernels = cfg.use_kernels
         if self._bmu_precision == "split2" and input_len < 32:

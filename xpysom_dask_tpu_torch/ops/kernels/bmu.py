@@ -39,18 +39,24 @@ the caller's distance is not euclidean (cosine and the norm_p expansion
 pass zero), and the packing. ``NormPEvenCodebook`` expands both sides and
 searches through a ``PackedCodebook``.
 
-The kernels: K1 ``bmu_argmin`` replaces ``_kernel_gemm_argmin``, K1-kb
+The kernels: K1 ``bmu_argmin`` replaces ``_kernel_gemm_argmin`` and K3
+``bmu_split3`` replaces ``_kernel_split3`` (two instances of one wgmma
+search, ``csrc/gemm_sm90.cu``, which reads its operands laid out by
+:func:`lay_out`; ``PackedCodebook`` lays its codebook out once); K1-kb
 ``bmu_argmin_kb`` replaces ``_kernel_gemm_argmin_kb`` (K1 with K summed
-slab by slab, reached through ``PackedCodebook.argmin(kblock=)``), K2
-``bmu_top2`` replaces ``_kernel_gemm_top2`` and K3 ``bmu_split3`` replaces
-``_kernel_split3`` (four instances of one template, ``csrc/gemm_bmu.cuh``,
-launched from ``csrc/bmu.cu``); K4 ``bmu_highest`` replaces
-``_kernel_highest`` (``csrc/highest.cu``). On a CPU tensor each wrapper
-runs its plain version; on a CUDA tensor it launches its kernel or
-raises.
+slab by slab, reached through ``PackedCodebook.argmin(kblock=)``) and K2
+``bmu_top2`` replaces ``_kernel_gemm_top2`` (two instances of the WMMA
+template ``csrc/gemm_bmu.cuh``, launched from ``csrc/bmu.cu``); K4
+``bmu_highest`` replaces ``_kernel_highest`` (``csrc/highest.cu``). On a
+CPU tensor each wrapper runs its plain version; on a CUDA tensor it
+launches its kernel or raises.
 """
 
 from __future__ import annotations
+
+import functools
+import os
+import warnings
 
 import torch
 
@@ -59,12 +65,16 @@ from . import build
 from .tile import check_tile_operands, first_argmin
 
 __all__ = [
+    "env_mode",
     "split_bf16",
     "split3_bf16",
     "pack_codebook",
     "pack_samples",
     "split3_codebook",
     "split3_samples",
+    "lay_out",
+    "lay_out_plain",
+    "lay_out_samples",
     "bmu_argmin",
     "bmu_argmin_plain",
     "bmu_argmin_kb",
@@ -93,6 +103,23 @@ _F32 = torch.float32
 GEMM_MODES = ("packed", "bf16", "split2", "split3", "highest", "margin")
 # the modes whose operands are one augmented GEMM (K1/K2)
 _AUG_MODES = ("packed", "bf16", "split2")
+
+
+def env_mode(default="packed") -> str:
+    """``XPYSOM_BMU_PRECISION``, read at spec construction only (the JAX
+    package's ``_env_mode``): an unrecognized value warns and falls back
+    to ``default``, so a stale env var does not break every constructor
+    (an explicit ``bmu_precision=`` raises instead)."""
+    m = os.environ.get("XPYSOM_BMU_PRECISION", "").lower()
+    if m in GEMM_MODES:
+        return m
+    if m:
+        warnings.warn(
+            f"XPYSOM_BMU_PRECISION={m!r} not recognized "
+            f"(expected packed|split2|split3|highest|bf16|margin); "
+            f"using {default!r}"
+        )
+    return default
 
 
 def split_bf16(a):
@@ -182,6 +209,114 @@ def split3_samples(x_c):
     return tuple(_pad2(t, n, _round_up(d, 16)) for t in split_bf16(x_c.float()))
 
 
+# The wgmma searches' operand layout (csrc/gemm_sm90.cu, whose constants
+# these repeat): tiles of GEMM_BM sample rows or of the codebook tile width
+# (K1_BN, K3_BN), each cut along K into chunks of GEMM_BK, each chunk
+# contiguous in wgmma's canonical no-swizzle K-major layout; K3 keeps a row
+# tile's A resident in shared memory up to RESIDENT_K of depth.
+GEMM_BM = 128
+GEMM_BK = 64
+K1_BN = 128
+K3_BN = 64
+RESIDENT_K = 256
+
+
+def lay_out_plain(t, trows):
+    """Plain version of the layout pre-pass: ``t`` (R, K) bf16 as the flat
+    ``ceil(R/trows)·trows × K16`` array the wgmma searches read (K16 = K
+    rounded up to 16). Each tile of ``trows`` rows holds its K chunks of
+    depth ``dc = min(GEMM_BK, K16 − c·GEMM_BK)`` one after the other; a
+    chunk holds its 8-row groups one after the other, a group its ``dc/8``
+    core matrices (8 rows × 8 values) along K, a core matrix its 8 rows of
+    8 values. Zero past R and past K."""
+    rows, k = t.shape
+    k16 = _round_up(k, 16)
+    ntiles = -(-rows // trows)
+    p = _pad2(t, ntiles * trows, k16).reshape(ntiles, trows, k16)
+    parts = []
+    for c0 in range(0, k16, GEMM_BK):
+        dc = min(GEMM_BK, k16 - c0)
+        blk = p[:, :, c0 : c0 + dc].reshape(ntiles, trows // 8, 8, dc // 8, 8)
+        parts.append(blk.permute(0, 1, 3, 2, 4).reshape(ntiles, trows * dc))
+    return torch.cat(parts, dim=1).reshape(-1)
+
+
+def lay_out(t, trows):
+    """The layout pre-pass (csrc/gemm_sm90.cu ``xps_layout_bf16``) of ``t``
+    (R, K) bf16, any strides; on a CPU tensor its plain version."""
+    if t.dtype != _BF16 or t.dim() != 2:
+        raise TypeError(f"an (R, K) bf16 operand expected, got {t.dtype} {tuple(t.shape)}")
+    if t.device.type == "cpu":
+        return lay_out_plain(t, trows)
+    rows, k = t.shape
+    k16 = _round_up(k, 16)
+    out = torch.empty(-(-rows // trows) * trows * k16, dtype=_BF16, device=t.device)
+    rc = build.load_library().xps_layout_bf16(
+        t.data_ptr(), rows, k, t.stride(0), t.stride(1), trows, k16, out.data_ptr(),
+        torch.cuda.current_stream(t.device).cuda_stream,
+    )
+    build.check(rc, "layout_bf16")
+    return out
+
+
+# the sample operands' segments of each mode: the high (0) or low (1) bf16
+# half of x_c per D-wide segment, and the count of trailing ones columns
+# (pack_samples, split3_samples)
+_SAMPLE_SEGMENTS = {
+    "packed": ((0, 1, 0), 3), "bf16": ((0,), 3), "split2": ((0, 1), 3),
+    "split3_hi": ((0,), 0), "split3_lo": ((1,), 0),
+}
+
+
+def _sample_operand_plain(x_c, part):
+    if part.startswith("split3"):
+        return split3_samples(x_c)[part == "split3_lo"]
+    return pack_samples(x_c, part)
+
+
+def lay_out_samples(x, center, part):
+    """The samples' operand of mode ``part`` (``'packed'``, ``'bf16'``,
+    ``'split2'``, or ``'split3_hi'`` / ``'split3_lo'``) for ``x`` (N, D) f32
+    centered by ``center`` (D,) (None: as given), laid out for the wgmma
+    searches in GEMM_BM-row tiles: ``lay_out(pack_samples(x − center,
+    part), GEMM_BM)`` (or of ``split3_samples``' half), which is its plain
+    version, in one pass (csrc/gemm_sm90.cu ``xps_pack_layout``) on the
+    card."""
+    x = x.float()
+    if x.device.type == "cpu":
+        x_c = x if center is None else x - center[None, :]
+        return lay_out_plain(_sample_operand_plain(x_c, part), GEMM_BM)
+    segs, ones = _SAMPLE_SEGMENTS[part]
+    n, d = x.shape
+    if x.stride(1) != 1:
+        x = x.contiguous()
+    k16 = _round_up(len(segs) * d + ones, 16)
+    out = torch.empty(-(-n // GEMM_BM) * GEMM_BM * k16, dtype=_BF16, device=x.device)
+    if n == 0:
+        return out
+    if center is not None:
+        center = center.float().contiguous()
+    rc = build.load_library().xps_pack_layout(
+        x.data_ptr(), x.stride(0), None if center is None else center.data_ptr(), n, d,
+        len(segs), sum(lo << i for i, lo in enumerate(segs)), ones, k16, out.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check(rc, "pack_layout")
+    return out
+
+
+def _codebook_rows(w_t, xy):
+    """The (XY, K) rows of a (K, XY8) codebook operand (a transposed view)."""
+    return w_t[:, :xy].T
+
+
+def _check_laid(w_laid, xy, k, trows, device):
+    size = -(-xy // trows) * trows * _round_up(k, 16)
+    if w_laid.dtype != _BF16 or w_laid.shape != (size,) or w_laid.device != device:
+        raise ValueError(f"a laid-out codebook of {size} bf16 values on {device} expected, got "
+                         f"{w_laid.dtype} {tuple(w_laid.shape)} on {w_laid.device}")
+
+
 def _distances_plain(a, w_aug, xy):
     with fp32_matmul():
         return a.float() @ w_aug[:, :xy].float()
@@ -235,30 +370,59 @@ def _check_kernel_layout(a, w_aug):
         raise ValueError("operands too large for 32-bit kernel indexing")
 
 
-def bmu_argmin(a, w_aug, xy):
+def _empty_result(device):
+    return (torch.empty(0, dtype=torch.int32, device=device),
+            torch.empty(0, dtype=_F32, device=device))
+
+
+def _gemm_sm90(entry, laid, w_sq, n, k, xy, resident):
+    """Launch K1 (``xps_gemm_argmin``) or K3 (``xps_gemm_split3``) on
+    laid-out operands: ``laid`` the sample halves then the codebook
+    halves; ``resident`` keeps each block's A in shared memory (only up
+    to RESIDENT_K of depth). Returns ``(idx, val)``."""
+    idx = torch.empty(n, dtype=torch.int32, device=laid[0].device)
+    val = torch.empty(n, dtype=_F32, device=laid[0].device)
+    sq = () if w_sq is None else (w_sq.data_ptr(),)
+    rc = getattr(build.load_library(), entry)(
+        *(t.data_ptr() for t in laid), *sq, n, _round_up(k, 16), xy, int(resident),
+        idx.data_ptr(), val.data_ptr(), torch.cuda.current_stream(laid[0].device).cuda_stream,
+    )
+    build.check(rc, entry)
+    return idx, val
+
+
+def bmu_argmin(a, w_aug, xy, w_laid=None):
     """K1: ``(idx, val)`` per row, ``idx`` the first-index argmin over the
     first ``xy`` columns of ``A @ W_aug`` and ``val`` its f32 value.
+    ``w_laid``: the codebook already laid out (``lay_out(W_aug[:, :xy].T,
+    K1_BN)``, which ``PackedCodebook`` makes once); without it the call
+    lays it out.
 
     Source note: replaces ``_kernel_gemm_argmin`` (xpysom_dask_tpu/ops/
-    pallas/bmu.py). On the H100 the GEMM bounds it (5.6e10 multiply-adds
-    per flagship chunk); the first version reaches the tensor cores
-    through WMMA with shared-memory staging and folds each distance tile
-    into a running (min, argmin) without writing it to device memory."""
+    pallas/bmu.py). On the H100 the tensor cores bound it (1.1e11 bf16
+    operations per flagship chunk, 0.113 ms). csrc/gemm_sm90.cu: a pre-pass lays A and W_aug out in wgmma's
+    canonical layout, one producer thread streams both through a 4-stage
+    ring of bulk copies on mbarriers, two consumer warpgroups run wgmma
+    m64n128k16, and the argmin is finished in the accumulator registers."""
     _check_operands(a, w_aug, xy)
     if a.device.type == "cpu":
         return bmu_argmin_plain(a, w_aug, xy)
     _check_kernel_layout(a, w_aug)
-    n = a.shape[0]
-    idx = torch.empty(n, dtype=torch.int32, device=a.device)
-    val = torch.empty(n, dtype=torch.float32, device=a.device)
-    lib = build.load_library()
-    rc = lib.xps_bmu_argmin(
-        a.data_ptr(), w_aug.data_ptr(), n, a.shape[1], xy, w_aug.shape[1],
-        idx.data_ptr(), val.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream,
-    )
-    build.check(rc, "bmu_argmin")
+    n, k = a.shape
+    if w_laid is None:
+        w_laid = lay_out(_codebook_rows(w_aug, xy), K1_BN)
+    _check_laid(w_laid, xy, k, K1_BN, a.device)
+    return _launch_k1(lay_out(a, GEMM_BM), w_laid, n, k, xy)
+
+
+def _launch_k1(a_laid, w_laid, n, k, xy):
+    """K1 on laid-out operands, counted on ``bmu_argmin``."""
+    if n == 0:
+        return _empty_result(a_laid.device)
+    # K1 streams its A (measured faster than keeping it resident)
+    out = _gemm_sm90("xps_gemm_argmin", (a_laid, w_laid), None, n, k, xy, False)
     bmu_argmin.launches += 1
-    return idx, val
+    return out
 
 
 bmu_argmin.launches = 0
@@ -379,21 +543,22 @@ def bmu_split3_plain(xh, xl, wh, wl, w_sq, xy):
     return first_argmin(-2.0 * cross + w_sq[None, :xy])
 
 
-def bmu_split3(xh, xl, wh, wl, w_sq, xy):
+def bmu_split3(xh, xl, wh, wl, w_sq, xy, w_laid=None):
     """K3: ``(idx, val)`` per row, ``idx`` the first-index argmin over the
     first ``xy`` columns of ``-2·((xh·wh + xh·wl) + xl·wh) + w_sq`` and
     ``val`` its f32 value; ``xh, xl`` (N, K) and ``wh, wl`` (K, XY8) bf16,
-    ``w_sq`` (XY,) f32.
+    ``w_sq`` (XY,) f32. ``w_laid``: ``(wh, wl)`` already laid out
+    (``lay_out(w[:, :xy].T, K3_BN)`` each, made once by
+    ``PackedCodebook``); without it the call lays them out.
 
     Source note: replaces ``_kernel_split3`` (xpysom_dask_tpu/ops/pallas/
     bmu.py, mode 'split3'). Three separate bf16 tensor-core products, each
     accumulated in f32 and summed in the JAX kernel's order, so the mode's
     documented near-tie behaviour is kept (it is not folded into K1's one
-    K-chain). On the H100 the tensor cores bound it (3·N·XY·K
-    multiply-adds, 5.2e10 per flagship chunk); an instance of K1's kernel
-    template with three accumulator sets: WMMA m16n16k16, 64 rows per
-    block looping over all codebook tiles, shared-memory staging
-    (csrc/bmu.cu)."""
+    K-chain). On the H100 the tensor cores bound it (3·2·N·XY·K bf16
+    operations, 0.104 ms per flagship chunk). K1's pipeline
+    (csrc/gemm_sm90.cu) with three accumulator sets of wgmma m64n64k16;
+    the samples' halves stay resident in shared memory up to RESIDENT_K."""
     _check_operands(xh, wh, xy)
     _check_operands(xl, wl, xy)
     if xh.shape != xl.shape or wh.shape != wl.shape:
@@ -409,18 +574,22 @@ def bmu_split3(xh, xl, wh, wl, w_sq, xy):
     _check_kernel_layout(xl, wl)
     if not w_sq.is_contiguous():
         raise ValueError("the BMU kernels take contiguous operands")
-    n = xh.shape[0]
-    idx = torch.empty(n, dtype=torch.int32, device=xh.device)
-    val = torch.empty(n, dtype=torch.float32, device=xh.device)
-    lib = build.load_library()
-    rc = lib.xps_bmu_split3(
-        xh.data_ptr(), xl.data_ptr(), wh.data_ptr(), wl.data_ptr(), w_sq.data_ptr(),
-        n, xh.shape[1], xy, wh.shape[1], idx.data_ptr(), val.data_ptr(),
-        torch.cuda.current_stream(xh.device).cuda_stream,
-    )
-    build.check(rc, "bmu_split3")
+    n, k = xh.shape
+    if w_laid is None:
+        w_laid = tuple(lay_out(_codebook_rows(t, xy), K3_BN) for t in (wh, wl))
+    for t in w_laid:
+        _check_laid(t, xy, k, K3_BN, xh.device)
+    return _launch_k3((lay_out(xh, GEMM_BM), lay_out(xl, GEMM_BM)), w_laid, w_sq, n, k, xy)
+
+
+def _launch_k3(x_laid, w_laid, w_sq, n, k, xy):
+    """K3 on laid-out operands, counted on ``bmu_split3``."""
+    if n == 0:
+        return _empty_result(w_sq.device)
+    out = _gemm_sm90("xps_gemm_split3", (*x_laid, *w_laid), w_sq, n, k, xy,
+                     _round_up(k, 16) <= RESIDENT_K)
     bmu_split3.launches += 1
-    return idx, val
+    return out
 
 
 bmu_split3.launches = 0
@@ -576,7 +745,9 @@ class PackedCodebook:
     (:func:`center_by_mean`). ``w_sq`` overrides the ``‖w‖²`` operand with
     caller-defined semantics (the JAX package's ``w_sq_raw=True``): cosine
     and the norm_p expansion pass zeros, and ``'split2'`` then splits that
-    operand instead of using the rounded codebook's norm."""
+    operand instead of using the rounded codebook's norm. On the card the
+    wgmma searches (K1, K3) read the codebook laid out once per object
+    (:meth:`laid`) and the samples packed and laid out in one pass."""
 
     def __init__(self, w_flat, mode="packed", *, center=True, w_sq=None):
         if mode not in GEMM_MODES:
@@ -597,6 +768,19 @@ class PackedCodebook:
             self.w = w_c
         else:
             self.w = w_c.contiguous()
+        self._laid = None
+
+    def laid(self):
+        """The codebook operands of the wgmma searches (K1: the packed
+        ``W_aug``, under ``'margin'`` its re-rank's; K3: ``wh`` and ``wl``)
+        laid out once for this codebook (:func:`lay_out`); a tuple."""
+        if self._laid is None:
+            if self.mode == "split3":
+                src = [(self.wh, K3_BN), (self.wl, K3_BN)]
+            else:
+                src = [(self.w_aug_packed if self.mode == "margin" else self.w_aug, K1_BN)]
+            self._laid = tuple(lay_out(_codebook_rows(t, self.xy), tr) for t, tr in src)
+        return self._laid
 
     def _centered(self, x):
         x = x.float()
@@ -628,13 +812,18 @@ class PackedCodebook:
             _check_kblock_depth(kblock)
             fn = bmu_argmin_kb if use_kernels else bmu_argmin_kb_plain
             return fn(*self.operands(x), kblock)
+        # the kernels run on the card, with the codebook laid out once
+        on_card = use_kernels and self.w_sq.device.type == "cuda"
         if self.mode == "margin":
             top2 = bmu_top2 if use_kernels else bmu_top2_plain
             idx, val, _, val2 = top2(*self.operands(x))
+            argmin = bmu_argmin if use_kernels else bmu_argmin_plain
+            if on_card:
+                argmin = functools.partial(bmu_argmin, w_laid=self.laid()[0])
             return margin_rescue(
-                idx, val, val2, self._centered(x), self.w, self.w_sq, self.w_aug_packed,
-                bmu_argmin if use_kernels else bmu_argmin_plain,
-            )
+                idx, val, val2, self._centered(x), self.w, self.w_sq, self.w_aug_packed, argmin)
+        if on_card and self.mode in (*_AUG_MODES, "split3"):
+            return self._search_laid(x)
         if self.mode in _AUG_MODES:
             fn = bmu_argmin if use_kernels else bmu_argmin_plain
         elif self.mode == "split3":
@@ -642,6 +831,20 @@ class PackedCodebook:
         else:
             fn = bmu_highest if use_kernels else bmu_highest_plain
         return fn(*self.operands(x))
+
+    def _search_laid(self, x):
+        """K1 or K3 on the card with the samples packed and laid out in one
+        pass (:func:`lay_out_samples`): the operands of :meth:`operands`
+        laid out, bit for bit, without their intermediate copies."""
+        n, d = x.shape
+        if max(n, d, self.xy) >= 2**31:
+            raise ValueError("operand sizes must fit 32-bit ints")
+        if self.mode == "split3":
+            x_laid = tuple(lay_out_samples(x, self.center, p) for p in ("split3_hi", "split3_lo"))
+            return _launch_k3(x_laid, self.laid(), self.w_sq, n, d, self.xy)
+        k = len(_SAMPLE_SEGMENTS[self.mode][0]) * d + 3
+        return _launch_k1(lay_out_samples(x, self.center, self.mode), self.laid()[0], n, k,
+                          self.xy)
 
     def top2(self, x, use_kernels=True, kblock=None):
         """K2's ``(idx, val, idx2, val2)``; modes ``'packed'`` and

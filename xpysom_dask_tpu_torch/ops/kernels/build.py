@@ -25,19 +25,24 @@ __all__ = ["load_library", "build_dir", "SOURCES", "last_build_seconds"]
 _PKG = Path(__file__).resolve().parents[2]
 _CSRC = _PKG / "csrc"
 SOURCES = (
-    "bmu.cu", "stats.cu", "highest.cu", "elementwise.cu", "manhattan.cu", "fused_stats.cu",
+    "gemm_sm90.cu", "bmu.cu", "stats.cu", "highest.cu", "elementwise.cu", "manhattan.cu",
+    "fused_stats.cu",
 )
-HEADERS = ("tile_argmin.cuh", "gemm_bmu.cuh")
+HEADERS = ("tile_argmin.cuh", "gemm_bmu.cuh", "sm90.cuh")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points and their argument types (every pointer and the stream
 # as c_void_p: ctypes would otherwise pass them as 32-bit ints)
 _SIGNATURES = {
-    "xps_bmu_argmin": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "xps_layout_bf16": (_P, _I, _I, _L, _L, _I, _I, _P, _P),
+    "xps_pack_layout": (_P, _L, _P, _I, _I, _I, _I, _I, _I, _P, _P),
+    "xps_gemm_argmin": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "xps_gemm_split3": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     "xps_bmu_argmin_kb": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "xps_bmu_top2": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
     "xps_scatter_stats": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
@@ -46,7 +51,6 @@ _SIGNATURES = {
     "xps_bmu_manhattan": (_P, _P, _I, _I, _I, _P, _P, _P),
     "xps_bmu_lp_odd": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
     "xps_bmu_lp_frac": (_P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P),
-    "xps_bmu_split3": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     "xps_manhattan_distance": (_P, _P, _I, _I, _I, _P, _P),
     "xps_bmu_stats_fused": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
 }

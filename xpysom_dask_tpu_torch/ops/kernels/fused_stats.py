@@ -26,7 +26,6 @@ from .bmu import (
     PackedCodebook,
     _check_kernel_layout,
     _check_operands,
-    bmu_argmin,
     bmu_argmin_plain,
 )
 from .stats import scatter_stats, scatter_stats_plain
@@ -124,7 +123,7 @@ def epoch_stats(w_flat, data, mask, fused=True):
         if fused:
             _, part = bmu_stats_fused(x, cb, m)
         else:
-            idx, _ = bmu_argmin(*cb.operands(x))
+            idx, _ = cb.argmin(x)  # K1, on the codebook laid out once
             part = scatter_stats(x, m, idx, cb.xy)
         acc = acc + part
     return acc[:, :d], acc[:, d]
