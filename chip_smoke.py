@@ -4,17 +4,26 @@
 Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --te-pass-of DIR   # only the TE pass, of the package in DIR
+
+The second form times ``topographic_error``'s pass (phase 6) with the
+``xpysom_dask_tpu_torch`` found in DIR, another checkout of this
+repository (for example ``git archive`` of an earlier commit), so two
+trees can be compared on one card in one call.
 
 Phases (each prints lines; any failure raises and exits non-zero):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build of the kernel library from ``xpysom_dask_tpu_torch/csrc``;
   3. the wgmma searches' layout pre-pass bit for bit against its plain
-     index map; K1 (packed BMU argmin, wgmma) and K2 (its top-2 form)
-     against their plain PyTorch versions on the card (the flagship shape,
-     a ragged shape and a tie fixture; K1 twice bitwise, with and without
-     the codebook laid out once), K1 under the norm_p p = 4 expansion in
-     mode packed, timed beside one bf16 cuBLAS product with an f32 output
-     + ``argmin`` and with each block's A streamed instead of resident,
+     index map; K1 (packed BMU argmin, wgmma) and K2 (its top-2 form, the
+     same wgmma search) against their plain PyTorch versions on the card
+     (the flagship shape, a ragged shape and a tie fixture; K1 and K2 with
+     and without the codebook laid out once and through PackedCodebook,
+     bitwise; K2's first place K1's bit for bit), K2 exactly equal to its
+     plain version on integer-valued duplicate fixtures (xy = 129, 200,
+     259), K1 under the norm_p p = 4 expansion in mode packed, timed
+     beside one bf16 cuBLAS product with an f32 output + ``argmin`` (K2:
+     + ``topk(2)``) and with each block's A streamed instead of resident,
      then K9 (statistics scatter) bitwise against its
      plain version and a second launch on the three flagship chunks
      (uniform nodes, K1's nodes, the initial codebook's) and on fixtures
@@ -33,13 +42,15 @@ Phases (each prints lines; any failure raises and exits non-zero):
      with its three-pass TF32 bound and the FP32 FFMA bound);
   5. the other precision modes' kernels: K3 (split3, wgmma) and K1/K2
      under the bf16 and split2 operands against their plain versions
-     (flagship, ragged, tie fixture; K3 twice bitwise), and K8 (the L1
+     (flagship, ragged, tie fixture; K3 twice bitwise; K2's first place
+     K1's bit for bit under bf16), and K8 (the L1
      matrix) bitwise against its plain version (flagship, ragged), with
      CUDA-event timings (K3 beside its three cuBLAS products summed in the
      kernel's order + ``argmin``);
   6. the main path: ``XPySom(128, 128, 64)`` on 2^19 samples, QE before,
      three epochs of a 10-epoch schedule, ``winner``, QE and TE, with the
-     kernels' launch counters read around it;
+     kernels' launch counters read around it; then TE's pass over the 32
+     device-resident chunks timed (CUDA events, median of 3);
   7. determinism (a second run gives the same codebook bits) and one
      epoch through the plain versions against the kernel path;
   8. the rectangular packed path, the ``bmu_precision='split3'`` path and
@@ -58,16 +69,19 @@ Phases (each prints lines; any failure raises and exits non-zero):
  11. ``margin`` on one flagship chunk of clustered data whose suspects fit
      the rescue buffer: the compacted re-rank runs, its winners equal the
      plain versions' and the float64 argmin up to the packed floor, and
-     its parts and the host read of the suspect count are timed;
+     its parts (K2 on the bf16 operands beside the rescue) and the host
+     read of the suspect count are timed;
  12. ``activate`` under manhattan on 8192 samples x 16384 nodes: K8
      launches and the matrix equals the plain versions' bit for bit; K8
      timed at activate's own chunk;
  13. the wide-D search (K1-kb): ``PackedCodebook.argmin(kblock=)`` at
      (16384, 16384, 512) and (16384, 4096, 1024), modes packed and bf16,
      kblock 512 and 1024, winners and values against the plain version and
-     K1, a ragged shape, a tie fixture across slabs, the validation errors,
-     K1 against its own plain version at the same shapes, CUDA-event
-     timings of K1-kb, K1 and the plain version;
+     K1, K1-kb on unpadded operands bit for bit its output on operands
+     zero-padded to kblock, a ragged shape, a tie fixture across slabs,
+     the validation errors, K1 against its own plain version at the same
+     shapes, CUDA-event timings of K1-kb, K1, the plain version and one
+     bf16 ``mm`` + ``argmin`` over the whole K;
  14. the fused-statistics epoch (K10): two epochs of the flagship
      (128x128x64, 2^19 samples, chunk 16384) whose statistics come from
      K10, bitwise equal to the same epochs from K1 + K9 and to a second
@@ -115,7 +129,7 @@ MARGIN_GATE = 6.0 * 2.0**-8
 REPLACES = {
     "bmu_argmin": ("xpysom_dask_tpu_torch/csrc/gemm_sm90.cu",
                    "xpysom_dask_tpu/ops/pallas/bmu.py:254"),
-    "bmu_top2": ("xpysom_dask_tpu_torch/csrc/bmu.cu",
+    "bmu_top2": ("xpysom_dask_tpu_torch/csrc/gemm_sm90.cu",
                  "xpysom_dask_tpu/ops/pallas/bmu.py:341"),
     "scatter_stats": ("xpysom_dask_tpu_torch/csrc/stats.cu",
                       "xpysom_dask_tpu/ops/pallas/stats.py:47"),
@@ -131,7 +145,7 @@ REPLACES = {
                    "xpysom_dask_tpu/ops/pallas/bmu.py:212"),
     "manhattan_distance": ("xpysom_dask_tpu_torch/csrc/manhattan.cu",
                            "xpysom_dask_tpu/ops/pallas/manhattan.py:32"),
-    "bmu_argmin_kb": ("xpysom_dask_tpu_torch/csrc/bmu.cu",
+    "bmu_argmin_kb": ("xpysom_dask_tpu_torch/csrc/gemm_sm90.cu",
                       "xpysom_dask_tpu/ops/pallas/bmu.py:292"),
     "bmu_stats_fused": ("xpysom_dask_tpu_torch/csrc/fused_stats.cu",
                         "xpysom_dask_tpu/ops/pallas/fused_stats.py:75"),
@@ -193,6 +207,42 @@ def phase_card(torch):
     return smi
 
 
+# csrc/gemm_sm90.cu's search variants, in the order of its enum Search
+SEARCHES = ("K1 ARGMIN", "K3 SPLIT3", "K2 TOP2", "K1-kb KBLOCKED")
+
+
+def _kernel_name(mangled):
+    """The last component of a mangled kernel name (plus the gemm_sm90
+    variant): ``_ZN<len><name><len><name>...``."""
+    rest, name = mangled[3:] if mangled.startswith("_ZN") else "", mangled
+    while rest[:1].isdigit():
+        n = int(re.match(r"\d+", rest).group())
+        rest = rest[len(str(n)):]
+        name, rest = rest[:n], rest[n:]
+    v = re.search(r"SearchE(\d)", mangled)
+    return name + (f" <{SEARCHES[int(v.group(1))]}>" if v else "")
+
+
+def ptxas_report(log):
+    """``{kernel: (registers, spill store bytes, spill load bytes)}`` from
+    ``nvcc -Xptxas -v`` output."""
+    out, cur, spill = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = _kernel_name(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur] = (int(m.group(1)), *spill)
+            cur, spill = None, (0, 0)
+    return out
+
+
 def phase_build():
     from xpysom_dask_tpu_torch.ops.kernels import build
 
@@ -201,6 +251,11 @@ def phase_build():
     took = time.perf_counter() - t0
     print(f"build: kernel library ready in {took:.2f} s "
           f"(nvcc {build.last_build_seconds if build.last_build_seconds is not None else 'cached'})")
+    log = getattr(build, "last_build_log", None)  # an older tree's build keeps none
+    if log:
+        for name, (regs, st, ld) in sorted(ptxas_report(log).items()):
+            print(f"ptxas: {name}: {regs} registers, spill stores {st} bytes, spill loads {ld} "
+                  "bytes (sm_90a)")
 
 
 def _f64_partial(xc, wc):
@@ -223,12 +278,18 @@ def _check_near_ties(name, rows, xc, wc, got, want):
     require(bad == 0, f"{name}: {bad} of {len(rows)} index differences are not near-ties")
 
 
+def _bits_equal(torch, got, want):
+    return all(torch.equal(g.view(torch.int32), w.view(torch.int32)) for g, w in zip(got, want))
+
+
 def compare_bmu(torch, kb, name, x, w):
     """Kernel vs plain for K1 and K2 on (x, w), packed as the main path
-    packs them; K1 with the codebook laid out per call and laid out once
-    (``PackedCodebook.laid``), and a second launch, all bitwise equal.
-    Returns the K1/K2 max absolute value errors, the operands for timing,
-    K1's indices and the laid-out codebook."""
+    packs them; K1 and K2 with the codebook laid out per call and laid out
+    once (``PackedCodebook.laid``) and through ``PackedCodebook`` (the
+    samples packed and laid out in one pass), all bitwise equal, and K2's
+    first place K1's bit for bit. Returns the K1/K2 max absolute value
+    errors, the operands for timing, K1's indices and the laid-out
+    codebook."""
     xt = torch.from_numpy(x).cuda()
     cb = kb.PackedCodebook(torch.from_numpy(w).cuda())
     a, w_aug, xy = cb.operands(xt)
@@ -246,6 +307,10 @@ def compare_bmu(torch, kb, name, x, w):
                 "in one pass) differ in bits")
     i_p, v_p = kb.bmu_argmin_plain(a, w_aug, xy)
     t = kb.bmu_top2(a, w_aug, xy)
+    for again in (kb.bmu_top2(a, w_aug, xy, w_laid=laid), cb.top2(xt)):
+        require(_bits_equal(torch, again, t), f"{name}: K2 launches (codebook laid out once / "
+                "per call, samples packed in one pass) differ in bits")
+    require(_bits_equal(torch, t[:2], (i_k, v_k)), f"{name}: K2's first place is not K1's bits")
     tp = kb.bmu_top2_plain(a, w_aug, xy)
     torch.cuda.synchronize()
     i_k, v_k, i_p, v_p = (u.cpu().numpy() for u in (i_k, v_k, i_p, v_p))
@@ -266,8 +331,6 @@ def compare_bmu(torch, kb, name, x, w):
     same = i_k == i_p
     err1 = float(np.abs(v_k - v_p)[same].max()) if same.any() else 0.0
     require((np.abs(v_k - v_p) <= tol)[same].all(), f"{name}: K1 values disagree")
-    # K1 and K2 share the GEMM and the first-place order: same winner
-    require((t[0] == i_k).all() and np.array_equal(t[1], v_k), f"{name}: K2 first != K1")
 
     diff2 = np.nonzero((t[0] != tp[0]) | (t[2] != tp[2]))[0]
     _check_near_ties(f"{name} K2 first", diff2, xc, wc, t[0], tp[0])
@@ -277,8 +340,8 @@ def compare_bmu(torch, kb, name, x, w):
         if same2.any() else 0.0
     require((np.abs(t[3] - tp[3]) <= tol)[same2].all(), f"{name}: K2 values disagree")
     print(f"{name}: K1 {len(diff1)} near-tie index differences of {n}, max|dv| {err1:.3g}; "
-          f"K2 {len(diff2)} near-tie differences, max|dv| {err2:.3g}; K1 launches bitwise "
-          "equal, its first place K2's")
+          f"K2 {len(diff2)} near-tie differences, max|dv| {err2:.3g}; K1's and K2's launches "
+          "bitwise equal, K2's first place K1's bits")
     return err1, err2, (a, w_aug, xy), i_k, laid
 
 
@@ -294,6 +357,53 @@ def _mm_f32(torch):
     except (TypeError, RuntimeError):
         return (lambda x, y: torch.mm(x, y).float(),
                 "bf16 output cast to f32: this torch's mm takes no out_dtype")
+
+
+def _top2_duplicates(xy, n, rng):
+    """Integer-valued f32 distances (N, XY) holding the ties K2's finish
+    must order, and one-hot bf16 operands ``(A, W_aug)`` whose product is
+    exactly that matrix (one product per sum, every value exact in bf16):
+    a duplicate minimum in one thread's own columns (0 and 8), in another
+    quad lane (0 and 2), across tiles (0 and 128, 127 and 128), a runner-up
+    that ties the winner's value at a lower index than a third (5, 64,
+    128), a duplicated runner-up value, the last column first or second,
+    all columns equal, and rows of small random integers (dense ties)."""
+    base = (40 + (np.arange(xy) * 7) % 50).astype(np.float32)
+    rows = []
+    for at in ({0: 1, 8: 1}, {0: 1, 2: 1}, {0: 1, 128: 1}, {127: 1, 128: 1},
+               {5: 1, 64: 1, 128: 1}, {50: 1, 100: 2, 20: 2}, {0: 1, 1: 1},
+               {1: 1, 3: 2, 6: 2}, {xy - 1: 0, 3: 1}, {10: 0, xy - 1: 1}):
+        r = base.copy()
+        for c, v in at.items():
+            r[c % xy] = v
+        rows.append(r)
+    rows.append(np.full(xy, 7, np.float32))
+    while len(rows) < 32:
+        rows.append(rng.randint(0, 4, size=xy).astype(np.float32))
+    table = np.stack(rows)
+    a = np.zeros((n, len(table)), np.float32)
+    a[np.arange(n), rng.permutation(np.arange(n) % len(table))] = 1
+    w_aug = np.zeros((len(table), -(-xy // 8) * 8), np.float32)
+    w_aug[:, :xy] = table
+    return a, w_aug
+
+
+def _check_top2_duplicates(torch, kb):
+    """K2 against its plain version on the duplicate fixtures, exactly:
+    indices and values bit for bit, at xy = 129 (the last tile holds one
+    column), 200 and 259, ragged rows."""
+    rng = np.random.RandomState(13)
+    for xy in (129, 200, 259):
+        a, w_aug = (torch.from_numpy(t).to(torch.bfloat16).cuda()
+                    for t in _top2_duplicates(xy, 333, rng))
+        got, want = kb.bmu_top2(a, w_aug, xy), kb.bmu_top2_plain(a, w_aug, xy)
+        torch.cuda.synchronize()
+        require(_bits_equal(torch, got, want),
+                f"K2 duplicate fixture xy={xy}: differs from the plain version")
+        ties = int((got[1] == got[3]).sum())
+        require(ties >= 333 // 4, f"K2 duplicate fixture xy={xy}: only {ties} tied runner-ups")
+    print("K2 duplicate fixtures (xy = 129, 200, 259; 333 rows): equal to the plain version bit "
+          "for bit in idx, val, idx2, val2")
 
 
 def _check_layout(torch, kb):
@@ -504,6 +614,7 @@ def phase_kernels(torch, card):
     require(i0.cpu().numpy().tolist() == [0, 7, 0, 0], f"tie fixture: K1 {i0.tolist()}")
     require(i1.tolist() == [0, 7, 0, 0] and i2.tolist() == [1, 1500, 1, 1],
             f"tie fixture: K2 {i1.tolist()} {i2.tolist()}")
+    _check_top2_duplicates(torch, kb)
 
     err4 = _check_k1_norm_p4(torch, kb, x, w)
     err1 = max(err1, err4)
@@ -516,8 +627,10 @@ def phase_kernels(torch, card):
         "bmu_argmin": (cuda_ms(torch, lambda: kb.bmu_argmin(*ops, w_laid=laid)),
                        cuda_ms(torch, lambda: kb.bmu_argmin_plain(*ops)),
                        cuda_ms(torch, lambda: mm_f32(a, w_aug[:, :xy]).argmin(1))),
-        "bmu_top2": (cuda_ms(torch, lambda: kb.bmu_top2(*ops)),
-                     cuda_ms(torch, lambda: kb.bmu_top2_plain(*ops)), None),
+        "bmu_top2": (cuda_ms(torch, lambda: kb.bmu_top2(*ops, w_laid=laid)),
+                     cuda_ms(torch, lambda: kb.bmu_top2_plain(*ops)),
+                     cuda_ms(torch, lambda: torch.topk(mm_f32(a, w_aug[:, :xy]), 2, dim=1,
+                                                       largest=False))),
     }
     for name, (ms, plain, _) in timings.items():
         print(f"time {name} at the flagship chunk: kernel {ms:.4f} ms, plain {plain:.4f} ms "
@@ -535,12 +648,24 @@ def phase_kernels(torch, card):
         "the codebook's layout pre-pass": cuda_ms(
             torch, lambda: kb.lay_out(w_aug[:, :xy].T, kb.K1_BN)),
         "K1's kernel alone, A resident": cuda_ms(torch, lambda: kb._gemm_sm90(
-            "xps_gemm_argmin", (a_laid, laid), None, a.shape[0], a.shape[1], xy, True)),
+            "xps_gemm_argmin", (a_laid, laid), a.shape[0], a.shape[1], xy, True)),
         "K1's kernel alone, A streamed": cuda_ms(torch, lambda: kb._gemm_sm90(
-            "xps_gemm_argmin", (a_laid, laid), None, a.shape[0], a.shape[1], xy, False)),
+            "xps_gemm_argmin", (a_laid, laid), a.shape[0], a.shape[1], xy, False)),
     }
     for label, ms in parts.items():
         print(f"time bmu_argmin (K1) at the flagship chunk (K = {a.shape[1]}), {label}: "
+              f"{ms:.4f} ms (CUDA events; {card})")
+    parts = {
+        "library (one bf16 cuBLAS product, " + mm_label + ", + topk(2, largest=False); a "
+        "composition of calls)": timings["bmu_top2"][2],
+        "the search as TE runs it (PackedCodebook.top2: centering, the samples packed and "
+        "laid out in one pass, K2)": cuda_ms(torch, lambda: cb.top2(xt)),
+        "K2 laying the codebook out in the call too": cuda_ms(torch, lambda: kb.bmu_top2(*ops)),
+        "K2's kernel alone (A streamed)": cuda_ms(torch, lambda: kb._gemm_sm90(
+            "xps_gemm_top2", (a_laid, laid), a.shape[0], a.shape[1], xy, outs=4)),
+    }
+    for label, ms in parts.items():
+        print(f"time bmu_top2 (K2) at the flagship chunk (K = {a.shape[1]}), {label}: "
               f"{ms:.4f} ms (CUDA events; {card})")
     # bounds at the flagship chunk: the augmented GEMM's 2·N·XY·K operations
     # on the tensor cores
@@ -610,6 +735,41 @@ def phase_main_path(torch):
     print(f"main path: winner agrees with the plain versions on {4096 - len(flips)} "
           f"of 4096; the {len(flips)} others are near-ties")
     return data, kw, w, counts
+
+
+def phase_te_pass(torch, card, tree="this tree"):
+    """``core.make_topographic_stats_fn`` over the flagship's 32
+    device-resident chunks under the initial codebook of
+    ``XPySom(128, 128, 64, random_seed=0)``: one warm-up, then three
+    passes between CUDA events; prints the median and TE. Returns the
+    median in ms."""
+    from xpysom_dask_tpu_torch import XPySom, core
+
+    f = FLAGSHIP
+    data = np.random.RandomState(0).rand(f["n"], f["d"]).astype(np.float32)
+    som = XPySom(f["x"], f["y"], f["d"], sigma=64, sigmaN=1, learning_rate=0.5,
+                 learning_rateN=0.01, random_seed=0)
+    chunks, mask, _ = som._chunked(data)
+    fn = core.make_topographic_stats_fn(som._spec)
+    w = som._device_weights()
+    errs, cnt = fn(w, chunks, mask)
+    te = float(errs) / float(cnt)
+    require(0.0 <= te <= 1.0, f"TE pass: TE {te} outside [0, 1]")
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn(w, chunks, mask)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    med = sorted(times)[1]
+    print(f"TE over 2^19 samples: median {med:.4f} ms of {[round(t, 4) for t in times]} "
+          f"({chunks.shape[0]} device-resident chunks of {chunks.shape[1]}, initial codebook, "
+          f"TE {te!r}; CUDA events; {tree}; {card})")
+    return med
 
 
 def phase_determinism(torch, data, kw, w3):
@@ -959,10 +1119,14 @@ def compare_mode(torch, kb, name, x, w, mode):
         [(kb.bmu_argmin, kb.bmu_argmin_plain)]
     if mode == "bf16":
         pairs.append((kb.bmu_top2, kb.bmu_top2_plain))
-    err = 0.0
+    err, first = 0.0, None
     for kern, plain in pairs:
         got, want = kern(*ops), plain(*ops)
         torch.cuda.synchronize()
+        if first is None:
+            first = got
+        else:  # K2: its first place is K1's, bit for bit
+            require(_bits_equal(torch, got[:2], first), f"{name}: K2's first place is not K1's")
         got = [u.cpu().numpy() for u in got]
         want = [u.cpu().numpy() for u in want]
         i_k, v_k, i_p, v_p = got[0], got[1], want[0], want[1]
@@ -1038,7 +1202,7 @@ def phase_mode_kernels(torch, card):
                              cuda_ms(torch, library))
     x_laid = [kb.lay_out(t, kb.GEMM_BM) for t in (xh, xl)]
     for label, resident in (("A resident", True), ("A streamed", False)):
-        ms = cuda_ms(torch, lambda: kb._gemm_sm90("xps_gemm_split3", (*x_laid, *laid3), w_sq, n,
+        ms = cuda_ms(torch, lambda: kb._gemm_sm90("xps_gemm_split3", (*x_laid, *laid3, w_sq), n,
                                                   k, xy, resident))
         print(f"time bmu_split3 (K3) at the flagship chunk, its kernel alone, {label}: "
               f"{ms:.4f} ms (CUDA events; {card})")
@@ -1059,10 +1223,13 @@ def phase_mode_kernels(torch, card):
               f"chunk: kernel {t1[0]:.4f} ms, plain {t1[1]:.4f} ms, bound {b:.4f} ms "
               f"(CUDA events; {card})")
         if mode == "bf16":
-            t2 = (cuda_ms(torch, lambda: kb.bmu_top2(a, w_aug, xy)),
-                  cuda_ms(torch, lambda: kb.bmu_top2_plain(a, w_aug, xy)))
+            t2 = (cuda_ms(torch, lambda: kb.bmu_top2(a, w_aug, xy, w_laid=laid)),
+                  cuda_ms(torch, lambda: kb.bmu_top2_plain(a, w_aug, xy)),
+                  cuda_ms(torch, lambda: torch.topk(mm_f32(a, w_aug[:, :xy]), 2, dim=1,
+                                                    largest=False)))
             print(f"time bmu_top2 (K2) under bf16 operands at the flagship chunk: kernel "
-                  f"{t2[0]:.4f} ms, plain {t2[1]:.4f} ms (CUDA events; {card})")
+                  f"{t2[0]:.4f} ms, plain {t2[1]:.4f} ms, library ({mm_label}, + topk(2)) "
+                  f"{t2[2]:.4f} ms, bound {b:.4f} ms (CUDA events; {card})")
 
     # K8: the L1 matrix, bit for bit
     for label, (xx, ww) in (("flagship", (x, w)), ("ragged 1000x91 D=5", (xr, wr))):
@@ -1516,7 +1683,8 @@ def phase_margin_compact(torch, card):
     t = {
         "margin search": cuda_ms(torch, lambda: cb.argmin(xt)),
         "its operands (centering, bf16 packing)": cuda_ms(torch, lambda: cb.operands(xt)),
-        "K2 on bf16 operands": cuda_ms(torch, lambda: kb.bmu_top2(*ops)),
+        "K2 on bf16 operands (codebook laid out once, as the search runs it)": cuda_ms(
+            torch, lambda: kb.bmu_top2(*ops, w_laid=cb.laid()[1])),
         "the rescue after K2 (gate, host read, compaction, packing, K1 over the buffer, "
         "scatter, exact values)": cuda_ms(torch, lambda: kb.margin_rescue(
             i_b, v_b, v2_b, xc, cb.w, cb.w_sq, cb.w_aug_packed, kb.bmu_argmin)),
@@ -1596,12 +1764,28 @@ def _kb_flips(name, rows, mode, xc, wc, a, w_aug, got, want):
         require(not bad, f"{name}: {len(bad)} of {len(rows)} index differences are not ties")
 
 
+def _check_kb_padding(torch, kb, name, ops, kblock, got):
+    """K1-kb on ``ops`` zero-padded to a multiple of ``kblock`` (as the
+    plain version pads) gives ``got``, its output on the unpadded
+    operands, bit for bit in idx and val."""
+    a, w_aug, xy = ops
+    pa, pw = kb._pad_k(a, w_aug, kblock)
+    padded = kb.bmu_argmin_kb(pa, pw, xy, kblock)
+    torch.cuda.synchronize()
+    require(_bits_equal(torch, got, padded),
+            f"{name}: K1-kb on unpadded operands differs from K1-kb on padded ones")
+    print(f"{name} kblock={kblock}: K1-kb on unpadded operands (K = {a.shape[1]}) equals K1-kb "
+          f"on operands padded to K = {pa.shape[1]} bit for bit")
+
+
 def phase_kblock(torch, card):
     """The wide-D search through ``PackedCodebook.argmin(kblock=)`` at the
     shapes of tools/r4_kblock.py, modes packed and bf16, kblock 512 and
     1024 (the counters read around those calls); then K1-kb against its
-    plain version and K1 on the same operands, a ragged shape, a tie
-    fixture across slabs, the validation errors, and CUDA-event timings.
+    plain version and K1 on the same operands, on unpadded operands bit
+    for bit its output on operands zero-padded to kblock, a ragged shape,
+    a tie fixture across slabs, the validation errors, and CUDA-event
+    timings beside K1 and one bf16 ``mm`` + ``argmin`` over the whole K.
     Returns the launches, the max value error, the record's timings and
     bound (packed, 16384 x 16384 x 512, kblock 512)."""
     from xpysom_dask_tpu_torch.ops import kernels
@@ -1626,6 +1810,7 @@ def phase_kblock(torch, card):
     require(counts["bmu_argmin"] == 0, "the kblock search fell back to K1")
 
     err, record = 0.0, None
+    mm_f32, mm_label = _mm_f32(torch)
     for (shape, mode, kbk) in cases:
         n, xy, d = shape
         x, w = data[shape]
@@ -1636,6 +1821,8 @@ def phase_kblock(torch, card):
         i_p, v_p = kb.bmu_argmin_kb_plain(*ops, kbk)
         laid = cb.laid()[0]
         i_1, v_1 = kb.bmu_argmin(*ops, w_laid=laid)
+        if (shape, kbk) == (WIDE_SHAPES[0], 512):
+            _check_kb_padding(torch, kb, f"K1-kb {mode} {n}x{xy} D={d}", ops, kbk, (i_k, v_k))
         if kbk == 512:  # K1 against its own plain version, once per shape and mode
             i_1p, v_1p = kb.bmu_argmin_plain(*ops)
             d1 = np.nonzero((i_1 != i_1p).cpu().numpy())[0]
@@ -1666,16 +1853,19 @@ def phase_kblock(torch, card):
                 f"{name}: values disagree with the plain version")
         e = float(np.abs(v_k - v_p)[same].max())
         err = max(err, e)
-        t = (cuda_ms(torch, lambda: kb.bmu_argmin_kb(*ops, kbk)),
+        t = (cuda_ms(torch, lambda: kb.bmu_argmin_kb(*ops, kbk, w_laid=laid)),
              cuda_ms(torch, lambda: kb.bmu_argmin(*ops, w_laid=laid)),
-             cuda_ms(torch, lambda: kb.bmu_argmin_kb_plain(*ops, kbk), reps=3, warmup=1))
+             cuda_ms(torch, lambda: kb.bmu_argmin_kb_plain(*ops, kbk), reps=3, warmup=1),
+             cuda_ms(torch, lambda: mm_f32(a, w_aug[:, :xy]).argmin(1)))
         k = a.shape[1]
         b = bound(2.0 * n * xy * k / BF16_FLOPS, 2 * (n * k + k * w_aug.shape[1]) + 8 * n)
-        print(f"time {name} (K = {k}, padded to {-(-k // kbk) * kbk}): K1-kb {t[0]:.4f} ms, "
-              f"K1 {t[1]:.4f} ms, plain {t[2]:.4f} ms, bound {b[0]:.4f} ms by {b[1]}; "
-              f"max|dv| {e:.3g} (CUDA events; {card})")
+        print(f"time {name} (K = {k}, not padded; the plain version pads to "
+              f"{-(-k // kbk) * kbk}): K1-kb {t[0]:.4f} ms, K1 {t[1]:.4f} ms "
+              f"(K1-kb / K1 {t[0] / t[1]:.3f}), plain {t[2]:.4f} ms, library (one bf16 cuBLAS "
+              f"product, {mm_label}, + argmin over the whole K) {t[3]:.4f} ms, bound "
+              f"{b[0]:.4f} ms by {b[1]}; max|dv| {e:.3g} (CUDA events; {card})")
         if record is None:
-            record = ((t[0], t[2], None), b)
+            record = ((t[0], t[2], t[3]), b)
         del i_p, v_p
 
     # ragged: K = 3·200 + 3 = 603 in five 128-deep slabs, 91 nodes
@@ -1685,6 +1875,7 @@ def phase_kblock(torch, card):
         cb = kb.PackedCodebook(torch.from_numpy(wr).cuda(), mode)
         ops = cb.operands(torch.from_numpy(xr).cuda())
         i_k, v_k = cb.argmin(torch.from_numpy(xr).cuda(), kblock=128)
+        _check_kb_padding(torch, kb, f"K1-kb {mode} ragged 1000x91 D=200", ops, 128, (i_k, v_k))
         i_p, v_p = kb.bmu_argmin_kb_plain(*ops, 128)
         diff = np.nonzero((i_k != i_p).cpu().numpy())[0]
         center = cb.center.cpu().numpy()
@@ -1873,19 +2064,34 @@ def phase_fused_epoch(torch, card):
         bound(2.0 * n * xy * k / BF16_FLOPS, nbytes)
 
 
-def main():
+def main(argv):
+    import argparse
+    import os
+
     import torch
 
+    ap = argparse.ArgumentParser(description="On-card smoke test of xpysom_dask_tpu_torch")
+    ap.add_argument("--te-pass-of", metavar="DIR",
+                    help="only time the TE pass, with the package of the checkout in DIR")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)", file=sys.stderr)
         return 2
+    if args.te_pass_of:
+        sys.path.insert(0, os.path.abspath(args.te_pass_of))
     try:
-        import xpysom_dask_tpu_torch  # noqa: F401
+        import xpysom_dask_tpu_torch
     except ImportError as exc:
         print(f"chip_smoke: run from the repository root ({exc})", file=sys.stderr)
         return 2
 
     smi = phase_card(torch)
+    if args.te_pass_of:
+        root = os.path.dirname(os.path.dirname(os.path.abspath(xpysom_dask_tpu_torch.__file__)))
+        require(root == os.path.abspath(args.te_pass_of), f"the package came from {root}")
+        phase_build()
+        phase_te_pass(torch, smi, f"the tree in {args.te_pass_of}")
+        return 0
     phase_build()
     timings, errs, bounds = phase_kernels(torch, smi)
     for phase in (phase_tile_kernels, phase_mode_kernels):
@@ -1894,6 +2100,7 @@ def main():
         errs.update(e2)
         bounds.update(b2)
     data, kw, w3, counts = phase_main_path(torch)
+    phase_te_pass(torch, smi)
     phase_determinism(torch, data, kw, w3)
     counts_paths = phase_split3_and_hex_paths(torch, data)
     del data
@@ -1947,4 +2154,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

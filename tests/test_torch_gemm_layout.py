@@ -1,5 +1,5 @@
-"""The operand layout of the wgmma searches (K1 and K3,
-``csrc/gemm_sm90.cu``) on the CPU: the layout pre-pass's plain version
+"""The operand layout of the wgmma searches (K1, K3, and K2 and K1-kb on
+K1's operands, ``csrc/gemm_sm90.cu``) on the CPU: the layout pre-pass's plain version
 (``lay_out_plain``, which ``lay_out`` runs on CPU tensors) against an
 independent element-wise index map, un-laid back to ``pack_samples`` /
 ``pack_codebook`` and ``split3_samples`` / ``split3_codebook`` bit for
@@ -8,7 +8,9 @@ that are not a multiple of the tile width and depths that are not a
 multiple of the chunk depth. The kernel's reads are emulated from the laid
 bytes through wgmma's no-swizzle K-major descriptor (start address, LBO,
 SBO), with the kernel's own pointer arithmetic for resident and streamed
-A, and the search it feeds is held against the plain versions."""
+A, and the search it feeds is held against the plain versions; K1-kb's
+slab schedule is emulated on the same reads. K2's top-2 finish is
+emulated in tests/test_torch_gemm_finish.py."""
 
 import re
 from pathlib import Path
@@ -79,7 +81,12 @@ def test_k1_operands_read_back_bitwise(n, xy, d, mode):
     x, w = _data(n, xy, d, n + d)
     cb = kb.PackedCodebook(w, mode)
     a, w_aug, _ = cb.operands(x)
-    if mode == "margin":  # the re-rank's packed operands
+    if mode == "margin":
+        # K2's first pass reads the bf16 operands, its codebook laid()[1]
+        _check_laid(a, kb.GEMM_BM)
+        laid = _check_laid(w_aug[:, :xy].T, kb.K1_BN)
+        assert torch.equal(laid.view(torch.int16), cb.laid()[1].view(torch.int16))
+        # the re-rank's packed operands
         a, w_aug = kb.pack_samples(cb._centered(x)), cb.w_aug_packed
     _check_laid(a, kb.GEMM_BM)
     laid = _check_laid(w_aug[:, :xy].T, kb.K1_BN)
@@ -134,11 +141,14 @@ def _desc_read(image, start, lbo, sbo, rows):
     return image[byte // 2]
 
 
-def _emulated_k1(a, w_aug, xy, resident):
+def _emulated_k1(a, w_aug, xy, resident, kblock=None):
     """K1's addressing on the laid operands, in numpy: the producer's bulk
     copies into the resident A tile and the ring, the consumers' descriptors
     per 16-deep step, and the f32 accumulation of each tile; returns the
-    (N, XY) distances the finish ranks."""
+    (N, XY) distances the finish ranks. With ``kblock``, K1-kb's slab
+    schedule: a slab closes at its last 64-deep chunk or at K's end, its
+    product (float64 here) is rounded to f32 and added in f32, in order,
+    into a running sum that starts from 0.0; returns that sum."""
     bm, bn, lbo = kb.GEMM_BM, kb.K1_BN, 128
     n, k = a.shape
     k16 = -(-k // 16) * 16
@@ -146,6 +156,7 @@ def _emulated_k1(a, w_aug, xy, resident):
     ga = kb.lay_out(a, bm).view(torch.int16).numpy()
     gw = kb.lay_out(w_aug[:, :xy].T, bn).view(torch.int16).numpy()
     out = np.zeros((-(-n // bm) * bm, ntiles * bn), np.float64)
+    run = np.zeros(out.shape, np.float32)
     for blk in range(-(-n // bm)):
         a_tile = blk * bm * k16
         smem_a = ga[a_tile : a_tile + bm * k16] if resident else None
@@ -168,7 +179,11 @@ def _emulated_k1(a, w_aug, xy, resident):
                         torch.bfloat16).double().numpy()
                     rows = slice(blk * bm + wg * 64, blk * bm + wg * 64 + 64)
                     out[rows, tile * bn : (tile + 1) * bn] += to_f(av) @ to_f(bv).T
-    return out[:n, :xy]
+            if kblock and (c == nk - 1 or c % (kblock // BK) == kblock // BK - 1):
+                cell = (slice(blk * bm, blk * bm + bm), slice(tile * bn, (tile + 1) * bn))
+                run[cell] += out[cell].astype(np.float32)
+                out[cell] = 0.0
+    return (run if kblock else out)[:n, :xy]
 
 
 @pytest.mark.parametrize("resident", [True, False])
@@ -181,6 +196,35 @@ def test_emulated_kernel_reads_compute_the_plain_product(n, xy, d, resident):
     np.testing.assert_allclose(got, want.numpy(), rtol=0, atol=1e-9)
 
 
+@pytest.mark.parametrize("kblock", [128, 512])
+@pytest.mark.parametrize("n,xy,d", SHAPES)
+def test_emulated_slab_schedule_matches_the_kblocked_plain(n, xy, d, kblock):
+    """K1-kb's slabs on the unpadded laid operands (K = 18, 195, 963 padded
+    to 16 only): the same values bit for bit as the schedule on the
+    operands padded to ``kblock`` and as the slab association computed
+    from the unlaid padded operands (each slab's float64 product rounded
+    to f32, added in f32 from 0.0); the winners of ``bmu_argmin_kb_plain``
+    (which pads K to ``kblock``). Its values are f32 matmuls of the slabs,
+    whose summation order the CPU library picks (4e-5 relative at K = 195),
+    so they are held to the f32 accumulation bound 2·K·2⁻²⁴·Σ|A||W|."""
+    x, w = _data(n, xy, d, n + d + 5)
+    a, w_aug, _ = kb.PackedCodebook(w).operands(x)
+    got = _emulated_k1(a, w_aug, xy, False, kblock)
+    pa, pw = kb._pad_k(a, w_aug, kblock)
+    padded = _emulated_k1(pa, pw, xy, False, kblock)
+    np.testing.assert_array_equal(padded.view(np.int32), got.view(np.int32))
+    ref = np.zeros((n, xy), np.float32)
+    for k0 in range(0, pa.shape[1], kblock):
+        ref += (pa[:, k0 : k0 + kblock].double() @ pw[k0 : k0 + kblock, :xy].double()
+                ).numpy().astype(np.float32)
+    np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+    i_p, v_p = kb.bmu_argmin_kb_plain(a, w_aug, xy, kblock)
+    win = got.argmin(1)
+    np.testing.assert_array_equal(win, i_p.numpy())
+    mag = (a.double().abs() @ w_aug[:, :xy].double().abs()).numpy()[np.arange(n), win]
+    assert (np.abs(got.min(1) - v_p.numpy()) <= 2 * a.shape[1] * 2.0**-24 * mag).all()
+
+
 def test_layout_constants_match_the_kernel_source():
     src = (Path(kb.__file__).resolve().parents[2] / "csrc" / "gemm_sm90.cu").read_text()
 
@@ -189,8 +233,12 @@ def test_layout_constants_match_the_kernel_source():
 
     assert const("BM") == kb.GEMM_BM and const("BK") == kb.GEMM_BK
     assert const("RESIDENT_K") == kb.RESIDENT_K
-    assert re.search(r"BN = SPLIT3 \? (\d+) : (\d+);", src).groups() == (
-        str(kb.K3_BN), str(kb.K1_BN))
+    # every variant's tile width: K2 and K1-kb read K1's codebook layout
+    widths = dict(re.findall(r"struct Cfg<Search::(\w+)> : Shape<(\d+),", src))
+    assert widths == {"ARGMIN": str(kb.K1_BN), "SPLIT3": str(kb.K3_BN),
+                      "TOP2": str(kb.K1_BN), "KBLOCKED": str(kb.K1_BN)}
+    # K1-kb's slabs end on chunk ends
+    assert 128 % kb.GEMM_BK == 0
 
 
 def test_cpu_search_never_lays_out_and_wrappers_take_w_laid():
@@ -206,6 +254,21 @@ def test_cpu_search_never_lays_out_and_wrappers_take_w_laid():
         i2, v2 = fn(*ops, w_laid=cb.laid() if mode == "split3" else cb.laid()[0])
         assert torch.equal(i, i2) and torch.equal(v, v2)
         assert cb._laid is not None
+    # K2 and K1-kb: PackedCodebook's top2, kblock and margin routes lay
+    # nothing out; the wrappers ignore w_laid
+    for mode in ("packed", "bf16"):
+        cb = kb.PackedCodebook(w, mode)
+        top2 = cb.top2(x)
+        i, v = cb.argmin(x, kblock=128)
+        assert cb._laid is None
+        ops = cb.operands(x)
+        again = kb.bmu_top2(*ops, w_laid=cb.laid()[0])
+        assert all(torch.equal(p, q) for p, q in zip(top2, again))
+        i2, v2 = kb.bmu_argmin_kb(*ops, 128, w_laid=cb.laid()[0])
+        assert torch.equal(i, i2) and torch.equal(v, v2)
+    cb = kb.PackedCodebook(w, "margin")
+    cb.argmin(x)
+    assert cb._laid is None
 
 
 @pytest.mark.parametrize("n,xy,d", SHAPES)

@@ -292,7 +292,7 @@ def test_kernel_build_is_lazy():
 
     assert build._lib is None
     assert set(build.SOURCES) == {
-        "gemm_sm90.cu", "bmu.cu", "stats.cu", "highest.cu", "elementwise.cu", "manhattan.cu",
+        "gemm_sm90.cu", "stats.cu", "highest.cu", "elementwise.cu", "manhattan.cu",
         "fused_stats.cu",
     }
     assert build.HEADERS == ("tile_argmin.cuh", "gemm_bmu.cuh", "sm90.cuh")

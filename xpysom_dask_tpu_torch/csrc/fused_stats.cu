@@ -86,8 +86,7 @@ fused_stats_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __r
   // phase 1: the winners
   const int row_blocks = (n + BM - 1) / BM;
   for (int rb = blockIdx.x; rb < row_blocks; rb += gridDim.x)
-    gemm_bmu_rows<Products::PACKED, false>(st, rb * BM, a, w, n, k, xy, ldw, 0, idx, val,
-                                           nullptr, nullptr);
+    gemm_bmu_rows(st, rb * BM, a, w, n, k, xy, ldw, idx, val);
   cg::this_grid().sync();
 
   // phase 2: the statistics of node ranges

@@ -1,39 +1,28 @@
-// The WMMA GEMM-form BMU search of one 64-row block for Hopper (sm_90a),
-// shared by K1-kb and K2 (bmu.cu) and by the first phase of K10
-// (fused_stats.cu). K1 and K3 moved to wgmma (gemm_sm90.cu); these three
-// are the next candidates for that pipeline.
+// The WMMA GEMM-form BMU search of one 64-row block for Hopper (sm_90a):
+// the first phase of K10 (fused_stats.cu). K1, K2, K1-kb and K3 run on
+// wgmma (gemm_sm90.cu); this search is the next candidate for that
+// pipeline.
 //
-// The block's rows are searched against ALL codebook tiles; the template is
-// parametrised by its product set:
-//   * PACKED (K2, K10): one K-chain d[n, j] = A[n, :] . W[:, j], where
-//     A = [xh | xl | xh | 1 1 1] and W = [wh; wh; wl; s1; s2; s3] (or the
-//     bf16/split2 operands) are bf16 splits prepared by the wrapper
-//     (xpysom_dask_tpu_torch/ops/kernels/bmu.py), so d is the partial squared
-//     distance -2 x.w + |w|^2 in f32;
-//   * KBLOCKED (K1-kb): the same operands with K cut into slabs of `kblock`
-//     (a multiple of BK; K is padded to a multiple of it). Each slab is
-//     accumulated into a FRESH fragment set, which is then added into the
-//     tile's running f32 sum with __fadd_rn and zeroed: the Pallas kernel's
-//     association d_acc += dot(a_k, w_k), not K1's one chain.
-// The search returns the first-index argmin of each row and its value
-// (K1-kb, K10) or the two best (value, index) pairs in stable-argsort order
-// (K2). The (N, XY) distance matrix never reaches device memory.
+// The block's rows are searched against ALL codebook columns of one packed
+// K-chain d[n, j] = A[n, :] . W[:, j], where A = [xh | xl | xh | 1 1 1] and
+// W = [wh; wh; wl; s1; s2; s3] are bf16 splits prepared by the wrapper
+// (xpysom_dask_tpu_torch/ops/kernels/bmu.py), so d is the partial squared
+// distance -2 x.w + |w|^2 in f32. It returns the first-index argmin of each
+// row and its value; the (N, XY) distance matrix never reaches device
+// memory.
 //
 // Design (simple first version):
 //   * one block owns BM sample rows and loops over ALL codebook tiles of BN
 //     columns; this loop takes the place of the TPU's sequential grid axis,
 //     so nothing carries between blocks;
-//   * each BN-column tile is one bf16 tensor-core GEMM per product through
-//     WMMA (m16n16k16, f32 accumulation), each warp holding 2 x 2 fragments
-//     of every product (32 x 32 per warp), with the operands staged through
-//     shared memory in BK-deep chunks; bf16 x bf16 products are exact in f32;
-//   * KBLOCKED adds fragments elementwise in registers (the same fragment
-//     type has the same element layout) with explicit rounding;
+//   * each BN-column tile is one bf16 tensor-core GEMM through WMMA
+//     (m16n16k16, f32 accumulation), each warp holding 2 x 2 fragments (32
+//     x 32 per warp), with the operands staged through shared memory in
+//     BK-deep chunks; bf16 x bf16 products are exact in f32;
 //   * the f32 tile goes to shared memory and four threads per row fold it
 //     into a running (value, index) minimum. Ties: within a tile the
 //     lexicographic (value, index) order keeps the lowest index; across
-//     tiles a strict '<' keeps the earlier tile's winner. K2 keeps two such
-//     pairs, so a duplicate minimum is the runner-up.
+//     tiles a strict '<' keeps the earlier tile's winner.
 // Shared memory: the staged chunks and the f32 tile fit in 48 KB side by
 // side. The caller owns the buffers (Stage).
 // Bounds: rows >= n are neither read nor written; codebook columns >= xy
@@ -67,16 +56,8 @@ constexpr int STATIC_SMEM = 48 * 1024;
 // WMMA pointers must be 32-byte aligned: every buffer starts on 32 bytes
 static_assert((A_ELEMS * sizeof(__nv_bfloat16)) % 32 == 0, "A buffer alignment");
 static_assert((B_ELEMS * sizeof(__nv_bfloat16)) % 32 == 0, "B buffer alignment");
-
-enum class Products { PACKED, KBLOCKED };
-
-// ACCS fragment sets per warp of a product set
-template <Products P>
-struct Layout {
-  static constexpr int ACCS = P == Products::KBLOCKED ? 2 : 1;
-  static_assert((A_ELEMS + B_ELEMS) * (int)sizeof(__nv_bfloat16) + D_BYTES <= STATIC_SMEM,
-                "static shared memory");
-};
+static_assert((A_ELEMS + B_ELEMS) * (int)sizeof(__nv_bfloat16) + D_BYTES <= STATIC_SMEM,
+              "static shared memory");
 
 // The shared buffers of one block: the staged operand chunks (sa, sb) and
 // the f32 tile sd.
@@ -94,41 +75,15 @@ __device__ __forceinline__ bool lex_less(float va, int ia, float vb, int ib) {
   return va < vb || (va == vb && ia < ib);
 }
 
-// Merge the sorted pair (ov, oi, ov2, oi2) into the sorted pair
-// (v, i, v2, i2), keeping the two lexicographically smallest entries.
-__device__ __forceinline__ void merge_top2(float& v, int& i, float& v2, int& i2,
-                                           float ov, int oi, float ov2, int oi2) {
-  if (lex_less(ov, oi, v, i)) {
-    if (lex_less(v, i, ov2, oi2)) {
-      v2 = v;
-      i2 = i;
-    } else {
-      v2 = ov2;
-      i2 = oi2;
-    }
-    v = ov;
-    i = oi;
-  } else if (lex_less(ov, oi, v2, i2)) {
-    v2 = ov;
-    i2 = oi;
-  }
-}
-
 // Search rows row0 .. row0 + BM - 1 against every codebook column and write
-// their winners. a, w: the operands; kblock: KBLOCKED's slab depth, a
-// multiple of BK that divides k (unused otherwise). Every thread of the
-// block calls it. It may be called again at once on the same buffers;
-// other uses of them need a barrier first (the finish still reads sd).
-template <Products P, bool TOP2>
-__device__ __forceinline__ void gemm_bmu_rows(
-    const Stage& st, int row0, const __nv_bfloat16* __restrict__ a,
-    const __nv_bfloat16* __restrict__ w, int n, int k, int xy, int ldw, int kblock,
-    int* __restrict__ idx_out, float* __restrict__ val_out, int* __restrict__ idx2_out,
-    float* __restrict__ val2_out) {
-  using L = Layout<P>;
-  constexpr bool KB = P == Products::KBLOCKED;
-  // the set the products go to (KBLOCKED: the fresh slab set 1; else 0)
-  constexpr int CH = KB ? 1 : 0;
+// their winners. a, w: the operands. Every thread of the block calls it. It
+// may be called again at once on the same buffers; other uses of them need
+// a barrier first (the finish still reads sd).
+__device__ __forceinline__ void gemm_bmu_rows(const Stage& st, int row0,
+                                              const __nv_bfloat16* __restrict__ a,
+                                              const __nv_bfloat16* __restrict__ w, int n, int k,
+                                              int xy, int ldw, int* __restrict__ idx_out,
+                                              float* __restrict__ val_out) {
   float* sd = st.sd;
 
   const int tid = threadIdx.x;
@@ -141,23 +96,18 @@ __device__ __forceinline__ void gemm_bmu_rows(
   const int frow = tid >> 2;
   const int fsub = tid & 3;
 
-  float best = INFINITY, best2 = INFINITY;
-  int besti = 0, besti2 = INT_MAX;
+  float best = INFINITY;
+  int besti = 0;
 
   const int ntiles = (xy + BN - 1) / BN;
   for (int j = 0; j < ntiles; ++j) {
     const int col0 = j * BN;
-    // acc[0]: the packed chain or KBLOCKED's running sum; acc[1]:
-    // KBLOCKED's fresh slab
-    FragC acc[L::ACCS][2][2];
+    FragC acc[2][2];
 #pragma unroll
-    for (int p = 0; p < L::ACCS; ++p)
+    for (int fm = 0; fm < 2; ++fm)
 #pragma unroll
-      for (int fm = 0; fm < 2; ++fm)
-#pragma unroll
-        for (int fn = 0; fn < 2; ++fn) wmma::fill_fragment(acc[p][fm][fn], 0.0f);
+      for (int fn = 0; fn < 2; ++fn) wmma::fill_fragment(acc[fm][fn], 0.0f);
 
-    int slab = 0;  // KBLOCKED: depth accumulated in the fresh set
     for (int k0 = 0; k0 < k; k0 += BK) {
       {  // A chunk: BM x BK, one 16-byte vector per thread
         const int r = tid >> 2;
@@ -195,26 +145,10 @@ __device__ __forceinline__ void gemm_bmu_rows(
           for (int fm = 0; fm < 2; ++fm)
 #pragma unroll
             for (int fn = 0; fn < 2; ++fn)
-              wmma::mma_sync(acc[CH][fm][fn], fa[fm], fb[fn], acc[CH][fm][fn]);
+              wmma::mma_sync(acc[fm][fn], fa[fm], fb[fn], acc[fm][fn]);
         }
       }
       __syncthreads();
-      if constexpr (KB) {
-        // the slab ends: running sum += fresh slab, then a fresh set
-        slab += BK;
-        if (slab == kblock) {
-          slab = 0;
-#pragma unroll
-          for (int fm = 0; fm < 2; ++fm)
-#pragma unroll
-            for (int fn = 0; fn < 2; ++fn) {
-#pragma unroll
-              for (int e = 0; e < acc[0][fm][fn].num_elements; ++e)
-                acc[0][fm][fn].x[e] = __fadd_rn(acc[0][fm][fn].x[e], acc[CH][fm][fn].x[e]);
-              wmma::fill_fragment(acc[CH][fm][fn], 0.0f);
-            }
-        }
-      }
     }
     // to shared memory
 #pragma unroll
@@ -222,27 +156,17 @@ __device__ __forceinline__ void gemm_bmu_rows(
 #pragma unroll
       for (int fn = 0; fn < 2; ++fn)
         wmma::store_matrix_sync(sd + (warp_m * 32 + fm * 16) * LDD + warp_n * 32 + fn * 16,
-                                acc[0][fm][fn], LDD, wmma::mem_row_major);
+                                acc[fm][fn], LDD, wmma::mem_row_major);
     __syncthreads();
 
     // per-thread pass over its columns, in increasing index order
-    float tv = INFINITY, tv2 = INFINITY;
-    int ti = INT_MAX, ti2 = INT_MAX;
+    float tv = INFINITY;
+    int ti = INT_MAX;
     for (int c = fsub; c < BN; c += 4) {
       const int gc = col0 + c;
       if (gc >= xy) break;
       const float v = sd[frow * LDD + c];
-      if (TOP2) {
-        if (lex_less(v, gc, tv, ti)) {
-          tv2 = tv;
-          ti2 = ti;
-          tv = v;
-          ti = gc;
-        } else if (lex_less(v, gc, tv2, ti2)) {
-          tv2 = v;
-          ti2 = gc;
-        }
-      } else if (v < tv) {
+      if (v < tv) {
         tv = v;
         ti = gc;
       }
@@ -252,19 +176,13 @@ __device__ __forceinline__ void gemm_bmu_rows(
     for (int off = 1; off < 4; off <<= 1) {
       const float ov = __shfl_xor_sync(0xffffffffu, tv, off);
       const int oi = __shfl_xor_sync(0xffffffffu, ti, off);
-      if (TOP2) {
-        const float ov2 = __shfl_xor_sync(0xffffffffu, tv2, off);
-        const int oi2 = __shfl_xor_sync(0xffffffffu, ti2, off);
-        merge_top2(tv, ti, tv2, ti2, ov, oi, ov2, oi2);
-      } else if (lex_less(ov, oi, tv, ti)) {
+      if (lex_less(ov, oi, tv, ti)) {
         tv = ov;
         ti = oi;
       }
     }
-    // fold into the running carry; later tiles hold higher indices
-    if (TOP2) {
-      merge_top2(best, besti, best2, besti2, tv, ti, tv2, ti2);
-    } else if (tv < best) {
+    // fold into the running minimum; later tiles hold higher indices
+    if (tv < best) {
       best = tv;
       besti = ti;
     }
@@ -277,10 +195,6 @@ __device__ __forceinline__ void gemm_bmu_rows(
   if (fsub == 0 && gr < n) {
     idx_out[gr] = besti;
     val_out[gr] = best;
-    if (TOP2) {
-      idx2_out[gr] = besti2;
-      val2_out[gr] = best2;
-    }
   }
 }
 

@@ -1,9 +1,11 @@
-// GEMM-form BMU searches on Hopper's wgmma (sm_90a): K1 (packed, bf16 and
-// split2 operands: one augmented bf16 K-chain) and K3 (mode 'split3':
-// three separate f32 accumulations), with the pre-pass that lays their
-// operands out for wgmma.
+// GEMM-form BMU searches on Hopper's wgmma (sm_90a), four variants of one
+// kernel: K1 (packed, bf16 and split2 operands: one augmented bf16
+// K-chain), K3 (mode 'split3': three separate f32 accumulations), K2 (K1's
+// chain with a top-2 finish) and K1-kb (K1's chain with K summed slab by
+// slab), with the pre-pass that lays their operands out for wgmma.
 //
-// Replaces the Pallas kernels _kernel_gemm_argmin and _kernel_split3 of
+// Replaces the Pallas kernels _kernel_gemm_argmin, _kernel_split3,
+// _kernel_gemm_top2 and _kernel_gemm_argmin_kb of
 // xpysom_dask_tpu/ops/pallas/bmu.py:
 //   K1  d[n, j] = A[n, :] . W_aug[:, j]  (A = [xh | xl | xh | 1 1 1] and
 //       W_aug = [wh; wh; wl; s1; s2; s3], or the bf16/split2 operands,
@@ -14,8 +16,18 @@
 //       documented behaviour: it can flip float64 near-ties relative to the
 //       packed single chain, so the three sets are not folded into one
 //       K-chain;
-// each folded into the first-index argmin of every sample row; the (N, XY)
-// distance matrix never reaches device memory.
+//   K2  K1's d, ranked to the two best (value, index) pairs of each row in
+//       stable-argsort order: a duplicate minimum is the runner-up with
+//       val2 == val. Its first place is K1's, bit for bit (the same wgmma
+//       chain and the same first-place compares);
+//   K1-kb  K1's d with K cut into slabs of kblock (a multiple of 128, so
+//       slab ends fall on the layout's 64-deep chunk ends): each slab runs
+//       into a fresh accumulator set, added into a running f32 sum with
+//       __fadd_rn, the Pallas kernel's d_acc += dot(a_k, w_k) from 0.0.
+//       K is not padded to kblock: the last slab closes at K's end (zero
+//       depth would add exact zeros);
+// each folded into the first-index argmin (K2: the top two) of every
+// sample row; the (N, XY) distance matrix never reaches device memory.
 //
 // What bounds them on the H100: at the flagship chunk (16384 rows x 16384
 // nodes, D = 64) K1 is 2 N XY K = 1.1e11 bf16 operations (K = 208), 0.113
@@ -26,7 +38,9 @@
 // 0.8254), K3 0.3546 ms, 32% and 29% of the bound. The first versions (WMMA
 // m16n16k16, synchronous staging through registers, a shared-memory
 // distance tile) took 1.2676 and 1.6549. ptxas: K1 90 registers, K3 135,
-// no spills.
+// no spills. K2 and K1-kb ran on that WMMA design too (1.4763 ms at the
+// flagship chunk; 13.5092 at packed D = 512, kblock 512, K padded from 1552
+// to 2048); their times and registers on this pipeline are in PERF.md.
 //
 // Design (K4's pipeline, csrc/highest.cu, generalised):
 //   * layout pre-pass (layout_kernel): an operand of R rows x K is written
@@ -53,14 +67,16 @@
 //     (its warning C7520);
 //   * K3's A (both halves) stays resident in shared memory for all
 //     codebook tiles where it fits (K <= 256, so D <= 256), copied once,
-//     and the ring carries the codebook alone; K1 streams its A chunk
-//     beside the W chunk in every stage. Measured at the flagship chunk
+//     and the ring carries the codebook alone; K1 (and K2, K1-kb, which
+//     read its operands) streams its A chunk beside the W chunk in every
+//     stage. Measured at the flagship chunk
 //     (the kernel alone, chip_smoke.py, two runs): K3 0.3429 resident
 //     against 0.3795 streamed; K1 0.3342 and 0.3352 resident against
 //     0.3017 and 0.2998 streamed (its resident ring holds half the bytes
 //     in flight);
-//   * K1: per 16-deep step one wgmma m64n128k16 per warpgroup into 64
-//     accumulator registers; K3: three wgmma m64n64k16 (hh, hl, lh) into
+//   * K1, K2, K1-kb: per 16-deep step one wgmma m64n128k16 per warpgroup
+//     into 64 accumulator registers (K1-kb adds 64 for its running sum);
+//     K3: three wgmma m64n64k16 (hh, hl, lh) into
 //     three sets of 32 (BN = 64 keeps them at 96 registers). A tile's
 //     first product runs with scale-d 0, so no other instruction zeroes
 //     the accumulators (zeroing them behind in-flight wgmmas made ptxas
@@ -72,8 +88,16 @@
 //     column offsets immediates), a lexicographic (value, index) merge
 //     across the quad that shares a row (__shfl_xor_sync), then a strict
 //     '<' against the running minimum held in registers, so an earlier
-//     tile keeps a tie. K1's sums equal the WMMA kernels' (K2, K10) bit for
-//     bit: the tensor cores add each 16-deep product in the same order.
+//     tile keeps a tie. K2 walks the same columns keeping two (value,
+//     offset) places, merges the quad's pairs and the running pair with
+//     merge_top2 (lexicographic (value, index) order); K1-kb finishes its
+//     running sum as K1 finishes its chain. K1's sums equal the WMMA
+//     search's (K10's phase 1) bit for bit: the tensor cores add each
+//     16-deep product in the same order;
+//   * K1-kb closes a slab at its last chunk: wait_group 0, both stages
+//     released, then running += fresh; the next slab's first wgmma runs
+//     with scale-d 0 into the same fresh set, so no instruction writes an
+//     accumulator that a wgmma may still be writing.
 // Bounds: rows >= n are neither read (zero in the layout) nor written;
 // codebook rows >= xy are never candidates.
 
@@ -98,13 +122,17 @@ constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
 constexpr int RESIDENT_K = 256;   // A stays resident up to this padded depth
 constexpr int LBO_BYTES = 128;    // between the core matrices adjacent along K
 
-template <bool SPLIT3>
-struct Cfg {
-  static constexpr int BN = SPLIT3 ? 64 : 128;  // codebook rows per tile
-  static constexpr int OPS = SPLIT3 ? 2 : 1;    // operand halves (hi, lo)
-  static constexpr int NACC = SPLIT3 ? 3 : 1;   // accumulator sets
-  static constexpr int REGS = BN / 2;           // f32 accumulators per set
-  static constexpr int A_CHUNK = BM * BK * 2;   // bytes of one half's A chunk
+// The searches: K1's argmin, K3's three products, K2's top two, K1-kb's
+// slab sums
+enum class Search { ARGMIN, SPLIT3, TOP2, KBLOCKED };
+
+template <int BN_, int OPS_, int NACC_>
+struct Shape {
+  static constexpr int BN = BN_;      // codebook rows per tile
+  static constexpr int OPS = OPS_;    // operand halves (hi, lo)
+  static constexpr int NACC = NACC_;  // wgmma accumulator sets
+  static constexpr int REGS = BN / 2;  // f32 accumulators per set
+  static constexpr int A_CHUNK = BM * BK * 2;  // bytes of one half's A chunk
   static constexpr int B_CHUNK = BN * BK * 2;
   // resident: the A tile, then the ring of W chunks; streamed: the ring of
   // (A chunk, W chunk) stages
@@ -113,8 +141,40 @@ struct Cfg {
   static constexpr int SMEM_BYTES =
       RESIDENT_BYTES > STREAMED_BYTES ? RESIDENT_BYTES : STREAMED_BYTES;
 };
-static_assert(Cfg<true>::SMEM_BYTES <= 227 * 1024, "shared memory of K3");
-static_assert(Cfg<false>::SMEM_BYTES <= 227 * 1024, "shared memory of K1");
+
+// Each variant's tile width, operand halves and accumulator sets. K2 and
+// K1-kb read K1's codebook layout (128-row tiles); K1-kb also keeps a
+// running sum of BN / 2 registers beside its set. K3's three sets at
+// BN = 64 keep 96 accumulator registers.
+template <Search S>
+struct Cfg;
+template <>
+struct Cfg<Search::ARGMIN> : Shape<128, 1, 1> {};
+template <>
+struct Cfg<Search::SPLIT3> : Shape<64, 2, 3> {};
+template <>
+struct Cfg<Search::TOP2> : Shape<128, 1, 1> {};
+template <>
+struct Cfg<Search::KBLOCKED> : Shape<128, 1, 1> {};
+static_assert(Cfg<Search::SPLIT3>::SMEM_BYTES <= 227 * 1024, "shared memory of K3");
+static_assert(Cfg<Search::ARGMIN>::SMEM_BYTES <= 227 * 1024, "shared memory of K1");
+
+// Merge the sorted pair (ov, oi, ov2, oi2) into the sorted pair
+// (v, i, v2, i2), keeping the two lexicographically smallest entries. In
+// selects, not branches: lanes of a warp disagree on the outcome.
+__device__ __forceinline__ void merge_top2(float& v, int& i, float& v2, int& i2, float ov, int oi,
+                                           float ov2, int oi2) {
+  const bool first = lex_less(ov, oi, v, i);  // the other's first leads
+  // the runner-up: the better of the loser of the firsts and the winner's
+  // second
+  const bool mine = first ? lex_less(v, i, ov2, oi2) : !lex_less(ov, oi, v2, i2);
+  const float nv2 = first ? (mine ? v : ov2) : (mine ? v2 : ov);
+  const int ni2 = first ? (mine ? i : oi2) : (mine ? i2 : oi);
+  v = first ? ov : v;
+  i = first ? oi : i;
+  v2 = nv2;
+  i2 = ni2;
+}
 
 // d (64 rows x 128 codebook rows of the warpgroup, f32) = A . B^T + (acc ?
 // d : 0), both operands bf16 K-major from shared memory, K = 16: a tile's
@@ -252,14 +312,20 @@ __global__ void pack_layout_kernel(const float* __restrict__ x, long long ldx,
   }
 }
 
-template <bool SPLIT3>
+// slab: K1-kb's chunks per slab (kblock / BK); unused by the others.
+// idx2_out, val2_out: K2's runner-up; unused by the others.
+template <Search S>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_sm90_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ a_lo,
                  const __nv_bfloat16* __restrict__ w, const __nv_bfloat16* __restrict__ w_lo,
-                 const float* __restrict__ w_sq, int n, int k16, int xy, int resident,
-                 int* __restrict__ idx_out, float* __restrict__ val_out) {
-  using C = Cfg<SPLIT3>;
+                 const float* __restrict__ w_sq, int n, int k16, int xy, int resident, int slab,
+                 int* __restrict__ idx_out, float* __restrict__ val_out,
+                 int* __restrict__ idx2_out, float* __restrict__ val2_out) {
+  using C = Cfg<S>;
   constexpr int BN = C::BN;
+  constexpr bool SPLIT3 = S == Search::SPLIT3;
+  constexpr bool TOP2 = S == Search::TOP2;
+  constexpr bool KB = S == Search::KBLOCKED;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t full[STAGES];   // stage landed
   __shared__ __align__(8) uint64_t empty[STAGES];  // stage released by every consumer warp
@@ -331,13 +397,23 @@ gemm_sm90_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __res
   for (int p = 0; p < C::NACC; ++p)
 #pragma unroll
     for (int i = 0; i < C::REGS; ++i) acc[p][i] = 0.0f;  // defined before any wgmma
-  // running minimum of rows row_w and row_w + 8 (the same in the quad)
+  // K1-kb: the tile's running sum of closed slabs, from 0.0 (not a wgmma
+  // accumulator: only the consumers' own adds write it)
+  float run[KB ? C::REGS : 1];
+#pragma unroll
+  for (int i = 0; i < (KB ? C::REGS : 1); ++i) run[i] = 0.0f;
+  // running minimum of rows row_w and row_w + 8 (the same in the quad);
+  // K2 also the runner-up, both places from (+inf, INT_MAX)
   float best[2] = {INFINITY, INFINITY};
-  int besti[2] = {0, 0};
+  int besti[2] = {TOP2 ? INT_MAX : 0, TOP2 ? INT_MAX : 0};
+  float best2[2] = {INFINITY, INFINITY};
+  int besti2[2] = {INT_MAX, INT_MAX};
 
   auto release = [&](int it) {
     if (lane == 0) mbar_arrive(&empty[it % STAGES]);
   };
+  // K1-kb: chunk c is the last of its slab (K's last chunk is checked apart)
+  auto slab_end = [&](int c) { return KB && c % slab == slab - 1; };
 
   // wait for stage it (chunk c of its tile) and issue its wgmmas into ac,
   // as one commit group
@@ -357,6 +433,8 @@ gemm_sm90_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __res
 #pragma unroll
     for (int p = 0; p < C::NACC; ++p) fence_acc(ac[p]);
     wgmma_fence();
+    // the first chunk of a tile (K1-kb: of a slab) starts its set afresh
+    const bool first = KB ? c % slab == 0 : c == 0;
     // a 16-deep step is two core matrices along K
 #pragma unroll
     for (int ks = 0; ks < BK / 16; ++ks) {
@@ -364,7 +442,7 @@ gemm_sm90_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __res
         const int off = ks * 2 * LBO_BYTES;
         const uint64_t da = smem_desc(a_c[0] + off, LBO_BYTES, sbo);
         const uint64_t db = smem_desc(st + off, LBO_BYTES, sbo);
-        const int keep = c != 0 || ks != 0;  // 0: the tile's first product
+        const int keep = !first || ks != 0;  // 0: the set's first product
         wgmma_bf16(ac[0], da, db, keep);
         if constexpr (SPLIT3) {
           // hl = xh . wl, lh = xl . wh
@@ -399,8 +477,10 @@ gemm_sm90_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __res
     const int lim = xy - col0 - 2 * q;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      float tv = INFINITY;
-      int to = -1;
+      // first (and K2's second) place; in increasing index order a strict
+      // '<' is the lexicographic (value, index) order
+      float tv = INFINITY, tv2 = INFINITY;
+      int to = -1, to2 = -1;
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
@@ -411,29 +491,54 @@ gemm_sm90_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __res
             // -2 * cross is exact, so d rounds once, as -2.0 * cross + w_sq
             const float cross = __fadd_rn(__fadd_rn(ac[0][r], ac[1][r]), ac[2][r]);
             v = __fadd_rn(-2.0f * cross, sq[j][e]);
+          } else if constexpr (KB) {
+            v = run[r];
           } else {
             v = ac[0][r];
           }
-          if (v < tv && (full_tile || j * 8 + e < lim)) {
+          if constexpr (TOP2) {
+            // selects, not branches (lanes disagree on the outcome)
+            const bool in = full_tile || j * 8 + e < lim;
+            const bool lt1 = in && v < tv, lt2 = in && v < tv2;
+            tv2 = lt1 ? tv : (lt2 ? v : tv2);
+            to2 = lt1 ? to : (lt2 ? j * 8 + e : to2);
+            tv = lt1 ? v : tv;
+            to = lt1 ? j * 8 + e : to;
+          } else if (v < tv && (full_tile || j * 8 + e < lim)) {
             tv = v;
             to = j * 8 + e;
           }
         }
       // (INFINITY, INT_MAX) where no column was below +inf
       int ti = to < 0 ? INT_MAX : col0 + 2 * q + to;
+      if constexpr (TOP2) {
+        int ti2 = to2 < 0 ? INT_MAX : col0 + 2 * q + to2;
 #pragma unroll
-      for (int o = 1; o < 4; o <<= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, tv, o);
-        const int oi = __shfl_xor_sync(0xffffffffu, ti, o);
-        if (lex_less(ov, oi, tv, ti)) {
-          tv = ov;
-          ti = oi;
+        for (int o = 1; o < 4; o <<= 1) {
+          const float ov = __shfl_xor_sync(0xffffffffu, tv, o);
+          const int oi = __shfl_xor_sync(0xffffffffu, ti, o);
+          const float ov2 = __shfl_xor_sync(0xffffffffu, tv2, o);
+          const int oi2 = __shfl_xor_sync(0xffffffffu, ti2, o);
+          merge_top2(tv, ti, tv2, ti2, ov, oi, ov2, oi2);
         }
-      }
-      // later tiles hold higher indices: strict '<' keeps the first
-      if (tv < best[h]) {
-        best[h] = tv;
-        besti[h] = ti;
+        // later tiles hold higher indices, so the first place moves only on
+        // a strict '<', as K1's
+        merge_top2(best[h], besti[h], best2[h], besti2[h], tv, ti, tv2, ti2);
+      } else {
+#pragma unroll
+        for (int o = 1; o < 4; o <<= 1) {
+          const float ov = __shfl_xor_sync(0xffffffffu, tv, o);
+          const int oi = __shfl_xor_sync(0xffffffffu, ti, o);
+          if (lex_less(ov, oi, tv, ti)) {
+            tv = ov;
+            ti = oi;
+          }
+        }
+        // later tiles hold higher indices: strict '<' keeps the first
+        if (tv < best[h]) {
+          best[h] = tv;
+          besti[h] = ti;
+        }
       }
     }
   };
@@ -442,17 +547,29 @@ gemm_sm90_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __res
   for (int it = 0; it < total; ++it) {
     const int tile = it / nk, c = it - (it / nk) * nk;
     issue(acc, it, c);
-    // the wgmmas of it - 1 are retired (of it too at a tile's end); it - 1
-    // was released already if it ended a tile
-    if (c == nk - 1) {
+    // the wgmmas of it - 1 are retired (of it too where a tile or a slab
+    // ends); it - 1 was released already if it ended a tile or a slab
+    const bool ends = c == nk - 1 || slab_end(c);
+    if (ends) {
       wgmma_wait<0>();
     } else {
       wgmma_wait<1>();
     }
-    if (c != 0) release(it - 1);
-    if (c == nk - 1) {
+    if (c != 0 && !slab_end(c - 1)) release(it - 1);
+    if (ends) {
       release(it);
-      finish(acc, tile);
+      if constexpr (KB) {
+        fence_acc(acc[0]);
+#pragma unroll
+        for (int i = 0; i < C::REGS; ++i) run[i] = __fadd_rn(run[i], acc[0][i]);
+      }
+      if (c == nk - 1) {
+        finish(acc, tile);
+        if constexpr (KB) {
+#pragma unroll
+          for (int i = 0; i < C::REGS; ++i) run[i] = 0.0f;
+        }
+      }
     }
   }
 
@@ -464,31 +581,37 @@ gemm_sm90_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __res
       if (r < n) {
         idx_out[r] = besti[h];
         val_out[r] = best[h];
+        if constexpr (TOP2) {
+          idx2_out[r] = besti2[h];
+          val2_out[r] = best2[h];
+        }
       }
     }
   }
 }
 
-template <bool SPLIT3>
+template <Search S>
 int launch(const void* a, const void* a_lo, const void* w, const void* w_lo, const void* w_sq,
-           int n, int k16, int xy, int resident, void* idx, void* val, void* stream) {
-  using C = Cfg<SPLIT3>;
-  if (k16 <= 0 || k16 % 16 || xy <= 0 || (resident && k16 > RESIDENT_K))
+           int n, int k16, int xy, int resident, int slab, void* idx, void* val, void* idx2,
+           void* val2, void* stream) {
+  using C = Cfg<S>;
+  if (k16 <= 0 || k16 % 16 || xy <= 0 || (resident && k16 > RESIDENT_K) ||
+      (S == Search::KBLOCKED && slab <= 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   static bool smem_set = false;
   if (!smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        gemm_sm90_kernel<SPLIT3>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
+        gemm_sm90_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = true;
   }
-  gemm_sm90_kernel<SPLIT3><<<(n + BM - 1) / BM, THREADS, C::SMEM_BYTES,
-                             static_cast<cudaStream_t>(stream)>>>(
+  gemm_sm90_kernel<S><<<(n + BM - 1) / BM, THREADS, C::SMEM_BYTES,
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(a_lo),
       static_cast<const __nv_bfloat16*>(w), static_cast<const __nv_bfloat16*>(w_lo),
-      static_cast<const float*>(w_sq), n, k16, xy, resident, static_cast<int*>(idx),
-      static_cast<float*>(val));
+      static_cast<const float*>(w_sq), n, k16, xy, resident, slab, static_cast<int*>(idx),
+      static_cast<float*>(val), static_cast<int*>(idx2), static_cast<float*>(val2));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -535,7 +658,8 @@ int xps_pack_layout(const void* x, long long ldx, const void* center, int rows, 
 // f32 outputs. Returns cudaGetLastError().
 int xps_gemm_argmin(const void* a, const void* w, int n, int k16, int xy, int resident,
                     void* idx, void* val, void* stream) {
-  return launch<false>(a, nullptr, w, nullptr, nullptr, n, k16, xy, resident, idx, val, stream);
+  return launch<Search::ARGMIN>(a, nullptr, w, nullptr, nullptr, n, k16, xy, resident, 0, idx,
+                                val, nullptr, nullptr, stream);
 }
 
 // K3. xh, xl: the samples' split (n x k16) laid out in 128-row tiles; wh,
@@ -544,7 +668,27 @@ int xps_gemm_argmin(const void* a, const void* w, int n, int k16, int xy, int re
 int xps_gemm_split3(const void* xh, const void* xl, const void* wh, const void* wl,
                     const void* w_sq, int n, int k16, int xy, int resident, void* idx, void* val,
                     void* stream) {
-  return launch<true>(xh, xl, wh, wl, w_sq, n, k16, xy, resident, idx, val, stream);
+  return launch<Search::SPLIT3>(xh, xl, wh, wl, w_sq, n, k16, xy, resident, 0, idx, val,
+                                nullptr, nullptr, stream);
+}
+
+// K2. a, w: as K1's (A streamed); idx, val: the winner, idx2, val2: the
+// runner-up, (n,) int32 and f32 each. Returns cudaGetLastError().
+int xps_gemm_top2(const void* a, const void* w, int n, int k16, int xy, void* idx, void* val,
+                  void* idx2, void* val2, void* stream) {
+  return launch<Search::TOP2>(a, nullptr, w, nullptr, nullptr, n, k16, xy, 0, 0, idx, val, idx2,
+                              val2, stream);
+}
+
+// K1-kb. a, w: as K1's (A streamed), k16 not padded to kblock; kblock: the
+// slab depth, a positive multiple of 64 (the layout's chunk depth).
+// Returns cudaErrorInvalidValue for another kblock, else
+// cudaGetLastError().
+int xps_gemm_argmin_kb(const void* a, const void* w, int n, int k16, int xy, int kblock,
+                       void* idx, void* val, void* stream) {
+  if (kblock <= 0 || kblock % BK) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<Search::KBLOCKED>(a, nullptr, w, nullptr, nullptr, n, k16, xy, 0, kblock / BK,
+                                  idx, val, nullptr, nullptr, stream);
 }
 
 }  // extern "C"

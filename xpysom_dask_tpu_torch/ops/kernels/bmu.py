@@ -39,17 +39,17 @@ the caller's distance is not euclidean (cosine and the norm_p expansion
 pass zero), and the packing. ``NormPEvenCodebook`` expands both sides and
 searches through a ``PackedCodebook``.
 
-The kernels: K1 ``bmu_argmin`` replaces ``_kernel_gemm_argmin`` and K3
-``bmu_split3`` replaces ``_kernel_split3`` (two instances of one wgmma
+The kernels: K1 ``bmu_argmin`` replaces ``_kernel_gemm_argmin``, K3
+``bmu_split3`` ``_kernel_split3``, K2 ``bmu_top2`` ``_kernel_gemm_top2``
+(K1's search with a top-2 finish) and K1-kb ``bmu_argmin_kb``
+``_kernel_gemm_argmin_kb`` (K1 with K summed slab by slab, reached
+through ``PackedCodebook.argmin(kblock=)``): four variants of one wgmma
 search, ``csrc/gemm_sm90.cu``, which reads its operands laid out by
-:func:`lay_out`; ``PackedCodebook`` lays its codebook out once); K1-kb
-``bmu_argmin_kb`` replaces ``_kernel_gemm_argmin_kb`` (K1 with K summed
-slab by slab, reached through ``PackedCodebook.argmin(kblock=)``) and K2
-``bmu_top2`` replaces ``_kernel_gemm_top2`` (two instances of the WMMA
-template ``csrc/gemm_bmu.cuh``, launched from ``csrc/bmu.cu``); K4
-``bmu_highest`` replaces ``_kernel_highest`` (``csrc/highest.cu``). On a
-CPU tensor each wrapper runs its plain version; on a CUDA tensor it
-launches its kernel or raises.
+:func:`lay_out` (``PackedCodebook`` lays its codebook out once and packs
+and lays out each chunk's samples in one pass). K4 ``bmu_highest``
+replaces ``_kernel_highest`` (``csrc/highest.cu``). On a CPU tensor each
+wrapper runs its plain version; on a CUDA tensor it launches its kernel
+or raises.
 """
 
 from __future__ import annotations
@@ -375,20 +375,32 @@ def _empty_result(device):
             torch.empty(0, dtype=_F32, device=device))
 
 
-def _gemm_sm90(entry, laid, w_sq, n, k, xy, resident):
-    """Launch K1 (``xps_gemm_argmin``) or K3 (``xps_gemm_split3``) on
-    laid-out operands: ``laid`` the sample halves then the codebook
-    halves; ``resident`` keeps each block's A in shared memory (only up
-    to RESIDENT_K of depth). Returns ``(idx, val)``."""
-    idx = torch.empty(n, dtype=torch.int32, device=laid[0].device)
-    val = torch.empty(n, dtype=_F32, device=laid[0].device)
-    sq = () if w_sq is None else (w_sq.data_ptr(),)
+def _gemm_sm90(entry, operands, n, k, xy, *ints, outs=2):
+    """Launch a search of csrc/gemm_sm90.cu on laid-out operands: K1
+    (``xps_gemm_argmin``), K3 (``xps_gemm_split3``), K2 (``xps_gemm_top2``)
+    or K1-kb (``xps_gemm_argmin_kb``). ``operands``: the tensors whose
+    pointers lead the call (the sample halves, the codebook halves, K3's
+    ``w_sq``); ``ints``: the entry's trailing int arguments (K1, K3:
+    ``resident``, which keeps each block's A in shared memory up to
+    RESIDENT_K of depth; K1-kb: ``kblock``). Returns ``(idx, val)``, or
+    with ``outs=4`` K2's ``(idx, val, idx2, val2)``."""
+    dev = operands[0].device
+    out = [torch.empty(n, dtype=(torch.int32, _F32)[i % 2], device=dev) for i in range(outs)]
     rc = getattr(build.load_library(), entry)(
-        *(t.data_ptr() for t in laid), *sq, n, _round_up(k, 16), xy, int(resident),
-        idx.data_ptr(), val.data_ptr(), torch.cuda.current_stream(laid[0].device).cuda_stream,
+        *(t.data_ptr() for t in operands), n, _round_up(k, 16), xy, *map(int, ints),
+        *(t.data_ptr() for t in out), torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(rc, entry)
-    return idx, val
+    return tuple(out)
+
+
+def _codebook_laid(w_aug, xy, k, device, w_laid):
+    """K1's codebook operand laid out (``w_laid``, checked, or laid out
+    here): what K1, K2 and K1-kb read."""
+    if w_laid is None:
+        w_laid = lay_out(_codebook_rows(w_aug, xy), K1_BN)
+    _check_laid(w_laid, xy, k, K1_BN, device)
+    return w_laid
 
 
 def bmu_argmin(a, w_aug, xy, w_laid=None):
@@ -409,9 +421,7 @@ def bmu_argmin(a, w_aug, xy, w_laid=None):
         return bmu_argmin_plain(a, w_aug, xy)
     _check_kernel_layout(a, w_aug)
     n, k = a.shape
-    if w_laid is None:
-        w_laid = lay_out(_codebook_rows(w_aug, xy), K1_BN)
-    _check_laid(w_laid, xy, k, K1_BN, a.device)
+    w_laid = _codebook_laid(w_aug, xy, k, a.device, w_laid)
     return _launch_k1(lay_out(a, GEMM_BM), w_laid, n, k, xy)
 
 
@@ -420,7 +430,7 @@ def _launch_k1(a_laid, w_laid, n, k, xy):
     if n == 0:
         return _empty_result(a_laid.device)
     # K1 streams its A (measured faster than keeping it resident)
-    out = _gemm_sm90("xps_gemm_argmin", (a_laid, w_laid), None, n, k, xy, False)
+    out = _gemm_sm90("xps_gemm_argmin", (a_laid, w_laid), n, k, xy, False)
     bmu_argmin.launches += 1
     return out
 
@@ -465,67 +475,73 @@ def bmu_argmin_kb_plain(a, w_aug, xy, kblock):
     return first_argmin(d)
 
 
-def bmu_argmin_kb(a, w_aug, xy, kblock):
+def bmu_argmin_kb(a, w_aug, xy, kblock, w_laid=None):
     """K1-kb: K1's ``(idx, val)`` with the K axis summed in slabs of
-    ``kblock`` (a positive multiple of 128; K is zero-padded to a multiple
-    of it, as the JAX package pads).
+    ``kblock`` (a positive multiple of 128), the JAX package's K-blocked
+    association. ``w_laid`` as for :func:`bmu_argmin`.
 
     Source note: replaces ``_kernel_gemm_argmin_kb`` (xpysom_dask_tpu/ops/
     pallas/bmu.py), the K-blocked wide-D candidate, which cut VMEM's
-    per-step working set on the TPU. K1's loop over 32-deep staged chunks
-    already bounds the working set on the H100, so the kernel is K1's
-    template with a second fragment set: each slab accumulates into it,
-    then it is added into the running sum with ``__fadd_rn`` and zeroed,
-    the Pallas kernel's association. The tensor cores bound it as K1
-    (2·N·XY·K operations of the unpadded augmented depth; csrc/
-    gemm_bmu.cuh, instance KBLOCKED)."""
+    per-step working set on the TPU. K1's ring of 64-deep stages already
+    bounds the working set on the H100, so the kernel is K1's wgmma
+    search (csrc/gemm_sm90.cu, variant KBLOCKED) whose slabs close in the
+    consumers' loop: each slab runs into a fresh accumulator set, added
+    into a running f32 sum with ``__fadd_rn``, the Pallas kernel's
+    association. K is not padded to ``kblock`` on the card (the last slab
+    closes at K's end; zero depth adds exact zeros, so the values are
+    those of the padded operands); the plain version pads, as the JAX
+    package does. The tensor cores bound it as K1 (2·N·XY·K operations of
+    the unpadded augmented depth)."""
     _check_operands(a, w_aug, xy)
     _check_kblock_depth(kblock)
-    a, w_aug = _pad_k(a, w_aug, kblock)
     if a.device.type == "cpu":
         return bmu_argmin_kb_plain(a, w_aug, xy, kblock)
     _check_kernel_layout(a, w_aug)
-    n = a.shape[0]
-    idx = torch.empty(n, dtype=torch.int32, device=a.device)
-    val = torch.empty(n, dtype=torch.float32, device=a.device)
-    rc = build.load_library().xps_bmu_argmin_kb(
-        a.data_ptr(), w_aug.data_ptr(), n, a.shape[1], xy, w_aug.shape[1], kblock,
-        idx.data_ptr(), val.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream,
-    )
-    build.check(rc, "bmu_argmin_kb")
+    n, k = a.shape
+    w_laid = _codebook_laid(w_aug, xy, k, a.device, w_laid)
+    return _launch_kb(lay_out(a, GEMM_BM), w_laid, n, k, xy, kblock)
+
+
+def _launch_kb(a_laid, w_laid, n, k, xy, kblock):
+    """K1-kb on laid-out operands, counted on ``bmu_argmin_kb``."""
+    if n == 0:
+        return _empty_result(a_laid.device)
+    out = _gemm_sm90("xps_gemm_argmin_kb", (a_laid, w_laid), n, k, xy, kblock)
     bmu_argmin_kb.launches += 1
-    return idx, val
+    return out
 
 
 bmu_argmin_kb.launches = 0
 
 
-def bmu_top2(a, w_aug, xy):
+def bmu_top2(a, w_aug, xy, w_laid=None):
     """K2: ``(idx, val, idx2, val2)`` — the two best columns per row in
     stable-argsort order (value, then lowest index; a duplicate minimum is
-    the runner-up with ``val2 == val``).
+    the runner-up with ``val2 == val``). ``w_laid`` as for
+    :func:`bmu_argmin`.
 
     Source note: replaces ``_kernel_gemm_top2`` (xpysom_dask_tpu/ops/
-    pallas/bmu.py). Same GEMM and bound as K1; the finish carries two
-    (value, index) pairs per row through the lane and tile merges."""
+    pallas/bmu.py). K1's wgmma search (csrc/gemm_sm90.cu, variant TOP2) on
+    the same laid-out operands and bound, with a top-2 finish in
+    registers: each thread keeps two (value, index) places over its
+    columns, the quad and the running pair merge lexicographically. Its
+    first place is K1's bit for bit."""
     _check_operands(a, w_aug, xy)
     if a.device.type == "cpu":
         return bmu_top2_plain(a, w_aug, xy)
     _check_kernel_layout(a, w_aug)
-    n = a.shape[0]
-    idx = torch.empty(n, dtype=torch.int32, device=a.device)
-    val = torch.empty(n, dtype=torch.float32, device=a.device)
-    idx2 = torch.empty(n, dtype=torch.int32, device=a.device)
-    val2 = torch.empty(n, dtype=torch.float32, device=a.device)
-    lib = build.load_library()
-    rc = lib.xps_bmu_top2(
-        a.data_ptr(), w_aug.data_ptr(), n, a.shape[1], xy, w_aug.shape[1],
-        idx.data_ptr(), val.data_ptr(), idx2.data_ptr(), val2.data_ptr(),
-        torch.cuda.current_stream(a.device).cuda_stream,
-    )
-    build.check(rc, "bmu_top2")
+    n, k = a.shape
+    w_laid = _codebook_laid(w_aug, xy, k, a.device, w_laid)
+    return _launch_k2(lay_out(a, GEMM_BM), w_laid, n, k, xy)
+
+
+def _launch_k2(a_laid, w_laid, n, k, xy):
+    """K2 on laid-out operands, counted on ``bmu_top2``."""
+    if n == 0:
+        return (*_empty_result(a_laid.device), *_empty_result(a_laid.device))
+    out = _gemm_sm90("xps_gemm_top2", (a_laid, w_laid), n, k, xy, outs=4)
     bmu_top2.launches += 1
-    return idx, val, idx2, val2
+    return out
 
 
 bmu_top2.launches = 0
@@ -579,14 +595,14 @@ def bmu_split3(xh, xl, wh, wl, w_sq, xy, w_laid=None):
         w_laid = tuple(lay_out(_codebook_rows(t, xy), K3_BN) for t in (wh, wl))
     for t in w_laid:
         _check_laid(t, xy, k, K3_BN, xh.device)
-    return _launch_k3((lay_out(xh, GEMM_BM), lay_out(xl, GEMM_BM)), w_laid, w_sq, n, k, xy)
+    return _launch_k3((lay_out(xh, GEMM_BM), lay_out(xl, GEMM_BM)), w_laid, n, k, xy, w_sq)
 
 
-def _launch_k3(x_laid, w_laid, w_sq, n, k, xy):
+def _launch_k3(x_laid, w_laid, n, k, xy, w_sq):
     """K3 on laid-out operands, counted on ``bmu_split3``."""
     if n == 0:
         return _empty_result(w_sq.device)
-    out = _gemm_sm90("xps_gemm_split3", (*x_laid, *w_laid), w_sq, n, k, xy,
+    out = _gemm_sm90("xps_gemm_split3", (*x_laid, *w_laid, w_sq), n, k, xy,
                      _round_up(k, 16) <= RESIDENT_K)
     bmu_split3.launches += 1
     return out
@@ -746,8 +762,9 @@ class PackedCodebook:
     caller-defined semantics (the JAX package's ``w_sq_raw=True``): cosine
     and the norm_p expansion pass zeros, and ``'split2'`` then splits that
     operand instead of using the rounded codebook's norm. On the card the
-    wgmma searches (K1, K3) read the codebook laid out once per object
-    (:meth:`laid`) and the samples packed and laid out in one pass."""
+    wgmma searches (K1, K2, K1-kb, K3) read the codebook laid out once per
+    object (:meth:`laid`) and the samples packed and laid out in one
+    pass."""
 
     def __init__(self, w_flat, mode="packed", *, center=True, w_sq=None):
         if mode not in GEMM_MODES:
@@ -771,14 +788,17 @@ class PackedCodebook:
         self._laid = None
 
     def laid(self):
-        """The codebook operands of the wgmma searches (K1: the packed
-        ``W_aug``, under ``'margin'`` its re-rank's; K3: ``wh`` and ``wl``)
-        laid out once for this codebook (:func:`lay_out`); a tuple."""
+        """The codebook operands of the wgmma searches laid out once for
+        this codebook (:func:`lay_out`), a tuple: K1's ``W_aug`` (K1, K2
+        and K1-kb read it; under ``'margin'`` the packed re-rank's, then
+        the bf16 ``W_aug`` of K2's first pass); K3's ``wh`` and ``wl``."""
         if self._laid is None:
             if self.mode == "split3":
                 src = [(self.wh, K3_BN), (self.wl, K3_BN)]
+            elif self.mode == "margin":
+                src = [(self.w_aug_packed, K1_BN), (self.w_aug, K1_BN)]
             else:
-                src = [(self.w_aug_packed if self.mode == "margin" else self.w_aug, K1_BN)]
+                src = [(self.w_aug, K1_BN)]
             self._laid = tuple(lay_out(_codebook_rows(t, self.xy), tr) for t, tr in src)
         return self._laid
 
@@ -808,22 +828,28 @@ class PackedCodebook:
         counterpart of ``bmu_euclidean(kblock=)``; no training or scoring
         route sets it."""
         _check_kblock_mode(self.mode, kblock)
-        if kblock is not None:
-            _check_kblock_depth(kblock)
-            fn = bmu_argmin_kb if use_kernels else bmu_argmin_kb_plain
-            return fn(*self.operands(x), kblock)
         # the kernels run on the card, with the codebook laid out once
         on_card = use_kernels and self.w_sq.device.type == "cuda"
-        if self.mode == "margin":
-            top2 = bmu_top2 if use_kernels else bmu_top2_plain
-            idx, val, _, val2 = top2(*self.operands(x))
-            argmin = bmu_argmin if use_kernels else bmu_argmin_plain
+        if kblock is not None:
+            _check_kblock_depth(kblock)
             if on_card:
+                return self._on_card(_launch_kb, x, self.mode, self.laid()[0], kblock)
+            fn = bmu_argmin_kb if use_kernels else bmu_argmin_kb_plain
+            return fn(*self.operands(x), kblock)
+        if self.mode == "margin":
+            if on_card:
+                idx, val, _, val2 = self._on_card(_launch_k2, x, "bf16", self.laid()[1])
                 argmin = functools.partial(bmu_argmin, w_laid=self.laid()[0])
+            else:
+                top2 = bmu_top2 if use_kernels else bmu_top2_plain
+                idx, val, _, val2 = top2(*self.operands(x))
+                argmin = bmu_argmin if use_kernels else bmu_argmin_plain
             return margin_rescue(
                 idx, val, val2, self._centered(x), self.w, self.w_sq, self.w_aug_packed, argmin)
-        if on_card and self.mode in (*_AUG_MODES, "split3"):
-            return self._search_laid(x)
+        if on_card and self.mode in _AUG_MODES:
+            return self._on_card(_launch_k1, x, self.mode, self.laid()[0])
+        if on_card and self.mode == "split3":
+            return self._on_card(_launch_k3, x, "split3_hi", self.laid(), self.w_sq)
         if self.mode in _AUG_MODES:
             fn = bmu_argmin if use_kernels else bmu_argmin_plain
         elif self.mode == "split3":
@@ -832,19 +858,20 @@ class PackedCodebook:
             fn = bmu_highest if use_kernels else bmu_highest_plain
         return fn(*self.operands(x))
 
-    def _search_laid(self, x):
-        """K1 or K3 on the card with the samples packed and laid out in one
-        pass (:func:`lay_out_samples`): the operands of :meth:`operands`
-        laid out, bit for bit, without their intermediate copies."""
+    def _on_card(self, launch, x, part, w_laid, *extra):
+        """``launch(A, w_laid, N, K, XY, *extra)``: a wgmma search on the
+        card, ``A`` the samples of :meth:`operands` packed as ``part`` and
+        laid out in one pass (:func:`lay_out_samples`; under ``'split3'``
+        both halves), bit for bit, without their intermediate copies."""
         n, d = x.shape
         if max(n, d, self.xy) >= 2**31:
             raise ValueError("operand sizes must fit 32-bit ints")
         if self.mode == "split3":
-            x_laid = tuple(lay_out_samples(x, self.center, p) for p in ("split3_hi", "split3_lo"))
-            return _launch_k3(x_laid, self.laid(), self.w_sq, n, d, self.xy)
-        k = len(_SAMPLE_SEGMENTS[self.mode][0]) * d + 3
-        return _launch_k1(lay_out_samples(x, self.center, self.mode), self.laid()[0], n, k,
-                          self.xy)
+            a = tuple(lay_out_samples(x, self.center, p) for p in ("split3_hi", "split3_lo"))
+        else:
+            a = lay_out_samples(x, self.center, part)
+        segs, ones = _SAMPLE_SEGMENTS[part]
+        return launch(a, w_laid, n, len(segs) * d + ones, self.xy, *extra)
 
     def top2(self, x, use_kernels=True, kblock=None):
         """K2's ``(idx, val, idx2, val2)``; modes ``'packed'`` and
@@ -855,6 +882,8 @@ class PackedCodebook:
             raise ValueError("the top-2 search runs in mode 'packed' or 'bf16'")
         if kblock is not None:
             raise ValueError("top2=True does not support kblock")
+        if use_kernels and self.w_sq.device.type == "cuda":
+            return self._on_card(_launch_k2, x, self.mode, self.laid()[0])
         fn = bmu_top2 if use_kernels else bmu_top2_plain
         return fn(*self.operands(x))
 

@@ -20,17 +20,18 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["load_library", "build_dir", "SOURCES", "last_build_seconds"]
+__all__ = ["load_library", "build_dir", "SOURCES", "last_build_seconds", "last_build_log"]
 
 _PKG = Path(__file__).resolve().parents[2]
 _CSRC = _PKG / "csrc"
 SOURCES = (
-    "gemm_sm90.cu", "bmu.cu", "stats.cu", "highest.cu", "elementwise.cu", "manhattan.cu",
-    "fused_stats.cu",
+    "gemm_sm90.cu", "stats.cu", "highest.cu", "elementwise.cu", "manhattan.cu", "fused_stats.cu",
 )
 HEADERS = ("tile_argmin.cuh", "gemm_bmu.cuh", "sm90.cuh")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
-_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+# -Xptxas -v: ptxas reports each kernel's registers and spills (kept in
+# last_build_log)
+_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,8 +44,8 @@ _SIGNATURES = {
     "xps_pack_layout": (_P, _L, _P, _I, _I, _I, _I, _I, _I, _P, _P),
     "xps_gemm_argmin": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
     "xps_gemm_split3": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
-    "xps_bmu_argmin_kb": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
-    "xps_bmu_top2": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    "xps_gemm_top2": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
+    "xps_gemm_argmin_kb": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
     "xps_scatter_stats": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
     "xps_bmu_highest": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     "xps_split_tf32": (_P, _I, _I, _P, _P, _P),
@@ -58,6 +59,7 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib = None
 last_build_seconds = None  # wall time of this process's build, if it built
+last_build_log = None  # the compilers' output of that build
 
 
 def build_dir() -> Path:
@@ -88,9 +90,10 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def _run(cmds) -> None:
+def _run(cmds) -> list:
     """Run the commands side by side; raise with the first failure's
-    output. Every process is waited for (or killed) before returning."""
+    output, else return each command's output. Every process is waited
+    for (or killed) before returning."""
     procs = [
         subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for c in cmds
@@ -105,10 +108,11 @@ def _run(cmds) -> None:
     for cmd, p, text in zip(cmds, procs, outs):
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{text}")
+    return outs
 
 
 def _build(out: Path) -> None:
-    global last_build_seconds
+    global last_build_seconds, last_build_log
     out.parent.mkdir(parents=True, exist_ok=True)
     stem = out.with_suffix(f".{os.getpid()}")
     objs = [Path(f"{stem}.{Path(s).stem}.o") for s in SOURCES]
@@ -116,13 +120,15 @@ def _build(out: Path) -> None:
     nvcc = _nvcc()
     t0 = time.perf_counter()
     try:
-        _run([[nvcc, *_FLAGS, "-c", "-o", str(o), str(_CSRC / s)] for s, o in zip(SOURCES, objs)])
+        log = _run([[nvcc, *_FLAGS, "-c", "-o", str(o), str(_CSRC / s)]
+                    for s, o in zip(SOURCES, objs)])
         _run([[nvcc, *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)]])
         os.replace(tmp, out)
     finally:
         for f in (*objs, tmp):
             f.unlink(missing_ok=True)
     last_build_seconds = time.perf_counter() - t0
+    last_build_log = "\n".join(log)
 
 
 def load_library() -> ctypes.CDLL:
