@@ -5,15 +5,18 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
     python3 chip_smoke.py --te-pass-of DIR   # only the TE pass, of the package in DIR
+    python3 chip_smoke.py --manhattan-epoch-of DIR   # only the manhattan epoch, likewise
 
-The second form times ``topographic_error``'s pass (phase 6) with the
-``xpysom_dask_tpu_torch`` found in DIR, another checkout of this
-repository (for example ``git archive`` of an earlier commit), so two
-trees can be compared on one card in one call.
+The second form times ``topographic_error``'s pass (phase 6), the third
+the manhattan epoch (phase 9), with the ``xpysom_dask_tpu_torch`` found in
+DIR, another checkout of this repository (for example ``git archive`` of
+an earlier commit), so two trees can be compared on one card in one call.
 
 Phases (each prints lines; any failure raises and exits non-zero):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build of the kernel library from ``xpysom_dask_tpu_torch/csrc``;
+  2. build of the kernel library from ``xpysom_dask_tpu_torch/csrc``, with
+     ptxas's registers and spills per kernel and, from the SASS of the
+     elementwise engine's main loop, its instructions per term;
   3. the wgmma searches' layout pre-pass bit for bit against its plain
      index map; K1 (packed BMU argmin, wgmma) and K2 (its top-2 form, the
      same wgmma search) against their plain PyTorch versions on the card
@@ -37,14 +40,21 @@ Phases (each prints lines; any failure raises and exits non-zero):
      the flagship chunk, K4 at the even-p expansion's width (p = 4,
      D' = 320) held to K4's stated envelope plus cuBLAS's f32 bound, a
      ragged shape and a tie and zero-distance fixture, K4's TF32 split
-     bit for bit against the rounding on the bits, with CUDA-event
-     timings beside the library call (K4 beside ``addmm`` + ``argmin``,
-     with its three-pass TF32 bound and the FP32 FFMA bound);
+     bit for bit against the rounding on the bits; the elementwise
+     engine's fixtures, K5 and K6 bitwise and K7 within its contract:
+     integer-valued data whose exact ties straddle tiles, pipeline stages
+     and codebook segments, n below one block, xy below one tile, D = 1 and
+     D = 512 (the d-slab path); K7's term against float64 t^p over a sweep
+     of t; with CUDA-event timings beside the library call (K4 beside
+     ``addmm`` + ``argmin``, with its three-pass TF32 bound and the FP32
+     FFMA bound; K5-K7 with the codebook laid out once, as the path calls
+     them);
   5. the other precision modes' kernels: K3 (split3, wgmma) and K1/K2
      under the bf16 and split2 operands against their plain versions
      (flagship, ragged, tie fixture; K3 twice bitwise; K2's first place
      K1's bit for bit under bf16), and K8 (the L1
-     matrix) bitwise against its plain version (flagship, ragged), with
+     matrix, on K5's engine) bitwise against its plain version (flagship,
+     ragged), with
      CUDA-event timings (K3 beside its three cuBLAS products summed in the
      kernel's order + ``argmin``);
   6. the main path: ``XPySom(128, 128, 64)`` on 2^19 samples, QE before,
@@ -59,8 +69,9 @@ Phases (each prints lines; any failure raises and exits non-zero):
      the other two paths' QE and codebooks against the rectangular one's)
      and their epoch times on device-resident chunks;
   9. the manhattan main path at the same width (QE, 2 of 10 epochs,
-     winner/QE/TE, counters, winners against the plain versions) and its
-     epoch time on device-resident chunks;
+     winner/QE/TE, counters, winners against the plain versions), then
+     the manhattan epoch on device-resident chunks from the initial
+     codebook;
  10. shorter runs (2^16 samples, one epoch) under cosine, norm_p with
      p = 3, 1.5 and 4, euclidean with ``bmu_precision='highest'``,
      ``'bf16'``, ``'split2'``, and ``'margin'`` under euclidean and cosine:
@@ -91,12 +102,14 @@ Each kernel's record carries its launches on the path that runs it, its
 error against the plain version, its time, the plain version's, the time
 of one PyTorch library call that computes the same function where there
 is one, and its bound: the least time the card could take, from this
-run's shapes and the H100's published peaks.
+run's shapes and the H100's published peaks; the elementwise engine's
+kernels (K5-K8) also their registers and spill bytes.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -119,9 +132,9 @@ EPOCH_RTOL, EPOCH_ATOL = 1e-3, 1e-4
 # an f32 FFMA dot product of D terms (K4's cuBLAS plain version) errs by
 # at most D * 2^-24 * sum_d |x_d||2 w_d|
 F32_DOT = 2.0**-24
-# K7 (accurate expf/logf, a few ulp per term): the JAX tests' near-tie
-# margin (tests/test_pallas.py, relative float64 runner-up margin) and
-# value tolerance
+# K7 (t^f on the special-function unit): the JAX tests' near-tie margin
+# (tests/test_pallas.py, relative float64 runner-up margin) and value
+# tolerance
 FRAC_MARGIN, FRAC_RTOL = 1e-4, 1e-5
 # the bf16 pass's pairwise error envelope (mode 'margin''s gate, 6 u)
 MARGIN_GATE = 6.0 * 2.0**-8
@@ -213,14 +226,23 @@ SEARCHES = ("K1 ARGMIN", "K3 SPLIT3", "K2 TOP2", "K1-kb KBLOCKED")
 
 def _kernel_name(mangled):
     """The last component of a mangled kernel name (plus the gemm_sm90
-    variant): ``_ZN<len><name><len><name>...``."""
+    variant, or the tile_argmin.cuh term and epilogue):
+    ``_ZN<len><name><len><name>...``."""
     rest, name = mangled[3:] if mangled.startswith("_ZN") else "", mangled
     while rest[:1].isdigit():
         n = int(re.match(r"\d+", rest).group())
         rest = rest[len(str(n)):]
         name, rest = rest[:n], rest[n:]
     v = re.search(r"SearchE(\d)", mangled)
-    return name + (f" <{SEARCHES[int(v.group(1))]}>" if v else "")
+    if v:
+        return f"{name} <{SEARCHES[int(v.group(1))]}>"
+    t = re.search(r"(L1Term|PowTerm|FracTerm)(?:I((?:L[bi]n?\d+E)+)E)?ELb([01])E", mangled)
+    if t:
+        args = [{"b0": "false", "b1": "true"}.get(k + a, a.replace("n", "-"))
+                for k, a in re.findall(r"L([bi])(n?\d+)E", t.group(2) or "")]
+        term = t.group(1) + (f"<{', '.join(args)}>" if args else "")
+        return f"{name} <{term}, {'store' if t.group(3) == '1' else 'search'}>"
+    return name
 
 
 def ptxas_report(log):
@@ -243,7 +265,43 @@ def ptxas_report(log):
     return out
 
 
+_SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
+
+
+def sass_per_term(sass):
+    """``{engine instance: (instructions, special-function instructions)
+    per term}`` from ``cuobjdump -sass`` output: the straight-line block of
+    each tile_kernel search instance with the most shared-memory loads is
+    its unrolled main loop, where four 16-byte loads feed 64 terms."""
+    out = {}
+    for name, body in zip(*(lambda p: (p[1::2], p[2::2]))(
+            re.split(r"\n\s*Function : (\S+)\n", sass))):
+        label = _kernel_name(name)
+        if not label.startswith("tile_kernel") or "store" in label:
+            continue
+        blocks = [[]]
+        for line in body.splitlines():
+            if re.match(r"^\s*\.L_x_\d+:", line):
+                blocks.append([])
+                continue
+            m = _SASS_OP.search(line)
+            if m:
+                blocks[-1].append(m.group(1))
+                if m.group(1).startswith(("BRA", "EXIT", "RET")):
+                    blocks.append([])
+        loop = max(blocks, key=lambda b: sum(op.startswith("LDS") for op in b))
+        terms = 16 * sum(op.startswith("LDS") for op in loop)
+        if terms:
+            out[label] = (len(loop) / terms, sum(op.startswith("MUFU") for op in loop) / terms)
+    return out
+
+
 def phase_build():
+    """Builds the library; prints and returns ptxas's ``{kernel:
+    (registers, spill stores, spill loads)}`` and the engine's SASS
+    instructions per term."""
+    import shutil
+
     from xpysom_dask_tpu_torch.ops.kernels import build
 
     t0 = time.perf_counter()
@@ -252,10 +310,19 @@ def phase_build():
     print(f"build: kernel library ready in {took:.2f} s "
           f"(nvcc {build.last_build_seconds if build.last_build_seconds is not None else 'cached'})")
     log = getattr(build, "last_build_log", None)  # an older tree's build keeps none
-    if log:
-        for name, (regs, st, ld) in sorted(ptxas_report(log).items()):
-            print(f"ptxas: {name}: {regs} registers, spill stores {st} bytes, spill loads {ld} "
-                  "bytes (sm_90a)")
+    report = ptxas_report(log) if log else {}
+    for name, (regs, st, ld) in sorted(report.items()):
+        print(f"ptxas: {name}: {regs} registers, spill stores {st} bytes, spill loads {ld} "
+              "bytes (sm_90a)")
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lib = build.build_dir() / f"libxpysom_kernels_{build._digest()}.so"
+    if log and os.path.isfile(cuobjdump):
+        sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                              check=True).stdout
+        for name, (per_term, sfu) in sorted(sass_per_term(sass).items()):
+            print(f"SASS: {name}: {per_term:.3f} instructions a term, {sfu:.3f} of them "
+                  "special-function (the unrolled main loop)")
+    return report
 
 
 def _f64_partial(xc, wc):
@@ -998,7 +1065,8 @@ def phase_tile_kernels(torch, card):
             if shape == "flagship":
                 ops[label] = (key, o[:2], args, kern, plain)
         # tie and zero-distance fixture: samples equal to codebook rows 7,
-        # 10, 11, 12; row 7 duplicated at 9 (same tile) and 1500 (tile 23)
+        # 10, 11, 12; row 7 duplicated at 9 (same tile) and 1500 (tile 11,
+        # another codebook segment: four rows take 17 segments of a tile)
         wz = np.random.RandomState(2).rand(2100, 8).astype(np.float32)
         wz[9] = wz[1500] = wz[7]
         xz = wz[[7, 10, 11, 12]].copy()
@@ -1011,14 +1079,19 @@ def phase_tile_kernels(torch, card):
                 f"{label} all-tie fixture: {i.cpu().tolist()}")
         print(f"{label}: tie, zero-distance and all-tie fixtures pass")
 
-    # more counts of the one runtime multiply chain (term.reps in
-    # tile_argmin.cuh): odd p with 0, 4 and 8 multiplies; fractional p
-    # with 0, 3 and 4, through both branches (sqrt for 0.5 and 4.5)
+    # more counts of the multiply chain (tile_argmin.cuh: a template
+    # argument for K6's p = 3 and K7's floor(p) <= 2, else a run-time
+    # count): odd p with 0, 4 and 8 multiplies; fractional p with 0, 3 and
+    # 4, through both branches (sqrt for 0.5 and 4.5)
     for p in (1, 5, 9):
         compare_tile(torch, f"K6 p={p} ragged", ke.bmu_norm_p_odd, ke.bmu_norm_p_odd_plain,
                      xr, wr, p, exact=True)
     for p in (0.5, 3.3, 4.5):
-        _compare_frac(torch, f"K7 p={p} ragged", xr, wr, p)
+        errs["bmu_norm_p_frac"] = max(errs["bmu_norm_p_frac"],
+                                      _compare_frac(torch, f"K7 p={p} ragged", xr, wr, p)[0])
+    for key, err in _check_engine_fixtures(torch).items():
+        errs[key] = max(errs[key], err)
+    _frac_term_sweep(torch, card)
 
     from xpysom_dask_tpu_torch.ops.distances import fp32_matmul
 
@@ -1044,22 +1117,112 @@ def phase_tile_kernels(torch, card):
         print(f"time {label}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, library (addmm + "
               f"argmin) {t[2]:.4f} ms; bound {b[0]:.4f} ms (3 TF32 passes, by {b[1]}), FP32 "
               f"FFMA bound {b_ffma[0]:.4f} ms (CUDA events; {card})")
+    from xpysom_dask_tpu_torch.ops.kernels.tile import EW_BN, lay_out_f32
+
+    laid = lay_out_f32(ops["K5"][1][1], EW_BN)  # the codebook, laid out once per epoch
+    print(f"time the codebook's layout pre-pass (16384 x 64): "
+          f"{cuda_ms(torch, lambda: lay_out_f32(ops['K5'][1][1], EW_BN)):.4f} ms (CUDA events; "
+          f"{card})")
     for _, label, *_ in cases:
         key, (xt_, wt_), args, kern, plain = ops[label]
         p = args[0] if args else 1
-        t = (cuda_ms(torch, lambda: kern(xt_, wt_, *args)),
+        t = (cuda_ms(torch, lambda: kern(xt_, wt_, *args, w_laid=laid)),
              cuda_ms(torch, lambda: plain(xt_, wt_, *args), reps=3, warmup=1),
              cuda_ms(torch, lambda: torch.cdist(xt_, wt_, p=p).argmin(1), reps=3, warmup=1))
         # the record keeps K7's sqrt branch (p=1.5); the exp/log branch
         # (p=2.7) is printed
         if key not in timings:
             timings[key] = t
-            bounds[key] = bound(_elementwise_seconds(p, xt_.shape[0], wt_.shape[0],
-                                                     xt_.shape[1]),
-                                4 * (xt_.numel() + wt_.numel()) + 8 * xt_.shape[0])
-        print(f"time {label} flagship: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, library "
-              f"(cdist p={p} + argmin) {t[2]:.4f} ms (CUDA events; {card})")
+            bounds[key] = bounds_of(p, xt_, wt_)
+        print(f"time {label} flagship: kernel {t[0]:.4f} ms (the samples' layout included, "
+              f"the codebook laid out once), plain {t[1]:.4f} ms, library (cdist p={p} + "
+              f"argmin) {t[2]:.4f} ms; bound {bounds_of(p, xt_, wt_)[0]:.4f} ms (CUDA events; "
+              f"{card})")
     return timings, errs, bounds
+
+
+def bounds_of(p, x, w):
+    """The elementwise searches' bound at (x, w): issue and special-function
+    time of the terms (_elementwise_seconds) against the operands' bytes."""
+    return bound(_elementwise_seconds(p, x.shape[0], w.shape[0], x.shape[1]),
+                 4 * (x.numel() + w.numel()) + 8 * x.shape[0])
+
+
+def _check_engine_fixtures(torch):
+    """The elementwise engine (csrc/tile_argmin.cuh) on fixtures that reach
+    each of its paths: K5 and K6 (p = 3) bit for bit against their plain
+    versions, K7 (p = 1.5, 2.7) within its contract. Integer-valued data in
+    {0, 1, 2} at D = 8 ties exactly almost everywhere: on the flagship
+    chunk (one codebook segment) the first index must survive ties across
+    tiles and pipeline stages (one chunk a stage), at 1000 x 2100 (17
+    segments) across segments and their merge. Returns the largest value
+    error of each kernel."""
+    from xpysom_dask_tpu_torch.ops.kernels import elementwise as ke
+    from xpysom_dask_tpu_torch.ops.kernels.stats import _sm_count
+    from xpysom_dask_tpu_torch.ops.kernels.tile import tile_plan
+
+    rng = np.random.RandomState(11)
+    xi = rng.randint(0, 3, (16384, 8)).astype(np.float32)
+    wi = rng.randint(0, 3, (16384, 8)).astype(np.float32)
+    fixtures = (
+        ("integer ties 16384x16384 D=8", xi, wi),
+        ("integer ties 1000x2100 D=8", xi[:1000], wi[:2100]),
+        ("n=5 below one block, 300 nodes", rng.rand(5, 7), rng.rand(300, 7)),
+        ("xy=50 below one tile, 1000 rows", rng.rand(1000, 9), rng.rand(50, 9)),
+        ("D=1 3000x700", rng.rand(3000, 1), rng.rand(700, 1)),
+        ("D=512 (d-slabs) 2048x2048", rng.rand(2048, 512), rng.rand(2048, 512)),
+    )
+    errs = {"bmu_manhattan": 0.0, "bmu_norm_p_odd": 0.0, "bmu_norm_p_frac": 0.0}
+    for label, x, w in fixtures:
+        x, w = x.astype(np.float32), w.astype(np.float32)
+        segs = tile_plan(x.shape[0], w.shape[0], _sm_count(0))[1]
+        label = f"{label}, {segs} segment{'s' if segs > 1 else ''}"
+        compare_tile(torch, f"K5 {label}", ke.bmu_manhattan, ke.bmu_manhattan_plain, x, w,
+                     exact=True)
+        compare_tile(torch, f"K6 p=3 {label}", ke.bmu_norm_p_odd, ke.bmu_norm_p_odd_plain, x, w,
+                     3, exact=True)
+        for p in (1.5, 2.7):
+            errs["bmu_norm_p_frac"] = max(errs["bmu_norm_p_frac"],
+                                          _compare_frac(torch, f"K7 p={p} {label}", x, w, p)[0])
+    return errs
+
+
+def _frac_term_sweep(torch, card):
+    """K7's term t^p on the card against float64, over 2^20 uniform t in
+    [0, 1) and 2^20 log-uniform t in [2^-149, 2^127], through the search
+    itself (D = 1 against the codebook row 0, so the value is the term);
+    the plain version's term beside it. Requires the kernel within
+    FRAC_RTOL of the plain version wherever the result is a normal f32,
+    0 at t = 0, 1 at t = 1 and +inf at t = +inf. Returns the largest
+    relative error against float64."""
+    from xpysom_dask_tpu_torch.ops.kernels import elementwise as ke
+
+    t = np.concatenate([np.random.RandomState(9).rand(1 << 20),
+                        2.0 ** np.random.RandomState(10).uniform(-149, 127, 1 << 20),
+                        [0.0, 1.0, np.inf]]).astype(np.float32)
+    xs = torch.from_numpy(t[:, None]).cuda()
+    zero = torch.zeros((1, 1), device="cuda")
+    worst = 0.0
+    for p in (0.3, 0.5, 1.5, 2.5, 2.7, 3.3):
+        got, want = (fn(xs, zero, p)[1].cpu().numpy() for fn in
+                     (ke.bmu_norm_p_frac, ke.bmu_norm_p_frac_plain))
+        require(got[-3] == 0.0 and got[-2] == 1.0 and got[-1] == np.inf,
+                f"K7 p={p}: t = 0, 1, inf give {got[-3:]}")
+        with np.errstate(over="ignore"):
+            exact = t[:-3].astype(np.float64) ** p
+        normal = (exact >= 2.0**-126) & (exact <= np.finfo(np.float32).max)
+        g, w_, e = got[:-3][normal].astype(np.float64), want[:-3][normal], exact[normal]
+        rel_k, rel_p = np.abs(g - e) / e, np.abs(w_ - e) / e
+        rel_kp = np.abs(g - w_) / w_
+        below = exact < 2.0**-126
+        tiny = np.abs(got[:-3][below] - exact[below]).max(initial=0.0)
+        require(rel_kp.max() <= FRAC_RTOL, f"K7 p={p}: term off the plain version's by "
+                f"{rel_kp.max():.3g} relative")
+        worst = max(worst, float(rel_k.max()))
+        print(f"K7 term sweep p={p} ({len(t) - 3} values of t): largest relative error against "
+              f"float64 {rel_k.max():.3g} (plain version {rel_p.max():.3g}; kernel against plain "
+              f"{rel_kp.max():.3g}); results below 2^-126 off by at most {tiny:.3g} ({card})")
+    return worst
 
 
 def _elementwise_seconds(p, n, xy, d):
@@ -1320,9 +1483,22 @@ def phase_manhattan_path(torch):
     require(np.array_equal(win, ref.predict(data[:4096])),
             "manhattan winners differ from the plain versions'")
     print("manhattan path: winners equal the plain versions' on 4096 rows")
-
-    _epoch_times(torch, "manhattan", som, data)
     return counts
+
+
+def phase_manhattan_epoch(torch, card, tree="this tree"):
+    """The manhattan epoch of ``XPySom(128, 128, 64,
+    activation_distance='manhattan', random_seed=0)`` on the manhattan
+    path's 2^19 samples, device-resident, from the initial codebook (one
+    unmeasured epoch, then three between synchronizations); returns the
+    median in ms."""
+    from xpysom_dask_tpu_torch import XPySom
+
+    f = FLAGSHIP
+    data = np.random.RandomState(3).rand(f["n"], f["d"]).astype(np.float32)
+    som = XPySom(f["x"], f["y"], f["d"], sigma=64, sigmaN=1, learning_rate=0.5,
+                 learning_rateN=0.01, random_seed=0, activation_distance="manhattan")
+    return 1e3 * _epoch_times(torch, f"manhattan ({tree}; {card})", som, data)
 
 
 def _epoch_times(torch, label, som, data):
@@ -2064,21 +2240,39 @@ def phase_fused_epoch(torch, card):
         bound(2.0 * n * xy * k / BF16_FLOPS, nbytes)
 
 
+# the elementwise engine's instances behind each kernel of its record
+_ENGINE = {"bmu_manhattan": "<L1Term, search>", "bmu_norm_p_odd": "<PowTerm",
+           "bmu_norm_p_frac": "<FracTerm", "manhattan_distance": "<L1Term, store>"}
+
+
+def _engine_registers(name, ptxas):
+    """K5-K8's registers (the most of any instance) and spill bytes (all
+    instances) from ptxas, for the kernels' record."""
+    if name not in _ENGINE:
+        return {}
+    inst = [v for k, v in ptxas.items() if k.startswith("tile_kernel " + _ENGINE[name])]
+    require(inst, f"ptxas reported no instance of {name}")
+    return {"registers": max(v[0] for v in inst), "spill_bytes": sum(v[1] + v[2] for v in inst)}
+
+
 def main(argv):
     import argparse
-    import os
 
     import torch
 
     ap = argparse.ArgumentParser(description="On-card smoke test of xpysom_dask_tpu_torch")
-    ap.add_argument("--te-pass-of", metavar="DIR",
-                    help="only time the TE pass, with the package of the checkout in DIR")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--te-pass-of", metavar="DIR",
+                      help="only time the TE pass, with the package of the checkout in DIR")
+    only.add_argument("--manhattan-epoch-of", metavar="DIR",
+                      help="only time the manhattan epoch, with the package of the checkout in DIR")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)", file=sys.stderr)
         return 2
-    if args.te_pass_of:
-        sys.path.insert(0, os.path.abspath(args.te_pass_of))
+    other = args.te_pass_of or args.manhattan_epoch_of
+    if other:
+        sys.path.insert(0, os.path.abspath(other))
     try:
         import xpysom_dask_tpu_torch
     except ImportError as exc:
@@ -2086,13 +2280,14 @@ def main(argv):
         return 2
 
     smi = phase_card(torch)
-    if args.te_pass_of:
+    if other:
         root = os.path.dirname(os.path.dirname(os.path.abspath(xpysom_dask_tpu_torch.__file__)))
-        require(root == os.path.abspath(args.te_pass_of), f"the package came from {root}")
+        require(root == os.path.abspath(other), f"the package came from {root}")
         phase_build()
-        phase_te_pass(torch, smi, f"the tree in {args.te_pass_of}")
+        phase = phase_te_pass if args.te_pass_of else phase_manhattan_epoch
+        phase(torch, smi, f"the tree in {other}")
         return 0
-    phase_build()
+    ptxas = phase_build()
     timings, errs, bounds = phase_kernels(torch, smi)
     for phase in (phase_tile_kernels, phase_mode_kernels):
         t2, e2, b2 = phase(torch, smi)
@@ -2105,6 +2300,7 @@ def main(argv):
     counts_paths = phase_split3_and_hex_paths(torch, data)
     del data
     counts_l1 = phase_manhattan_path(torch)
+    phase_manhattan_epoch(torch, smi)
     # each kernel's launches on the path that runs it, its counters set
     # to 0 just before that path and read just after: the flagship path
     # for K1/K2/K9, the split3 path for K3, the manhattan path for K5,
@@ -2137,6 +2333,7 @@ def main(argv):
                 "bound_ms": bounds[name][0],
                 "bound_by": bounds[name][1],
                 "library_ms": timings[name][2],
+                **_engine_registers(name, ptxas),
             }
             for name in REPLACES
         ],

@@ -2,13 +2,15 @@
 """Time and profile one flagship training epoch of the PyTorch port
 (``xpysom_dask_tpu_torch``) on a CUDA card. Run from the repository root:
 
-    python3 profile_torch_epoch.py [--trace PATH]
+    python3 profile_torch_epoch.py [--activation NAME] [--trace PATH]
 
 Prints the card, the host-clock time of three epochs with the kernels and
 with their plain versions (device-resident chunks, synchronized), the
 time of BMU search, QE and TE over all samples, K9's time per chunk with a
 warm and a flushed L2, and a torch.profiler table of one epoch with the
-device busy time. ``--trace`` also writes the chrome trace.
+device busy time. ``--activation`` trains under another activation
+distance (default euclidean; ``manhattan`` searches with K5), ``--trace``
+also writes the chrome trace.
 """
 
 from __future__ import annotations
@@ -23,7 +25,6 @@ import numpy as np
 import torch
 
 from xpysom_dask_tpu_torch import XPySom, core
-from xpysom_dask_tpu_torch.ops.kernels import bmu as kb
 from xpysom_dask_tpu_torch.ops.kernels import stats as ks
 
 
@@ -54,6 +55,8 @@ def _timed(fn, *args):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--activation", default="euclidean",
+                    help="the activation distance to train under (default euclidean)")
     ap.add_argument("--trace", help="write the chrome trace of the profiled epoch here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -65,9 +68,10 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
     ).stdout.strip()
     print("card:", smi)
+    print("activation:", args.activation)
     data = np.random.RandomState(0).rand(1 << 19, 64).astype(np.float32)
     som = XPySom(128, 128, 64, sigma=64, sigmaN=1, learning_rate=0.5,
-                 learning_rateN=0.01, random_seed=0)
+                 learning_rateN=0.01, random_seed=0, activation_distance=args.activation)
     (chunks, mask, _), took = _timed(som._chunked, data)
     print(f"host chunk_data + upload: {took:.4f} s")
     spec = som._spec
@@ -91,7 +95,7 @@ def main(argv=None):
         print(f"{name} over 2^19 samples: {_timed(fn, *fargs)[1]:.4f} s")
 
     # K9 per chunk on the first epoch's nodes, warm and after an L2 flush
-    cb = kb.PackedCodebook(w.reshape(spec.xy, spec.input_len))
+    cb = core._searcher(spec, spec.distance_fn(), w.reshape(spec.xy, spec.input_len))
     flush = torch.empty(64 << 20, dtype=torch.float32, device=w.device)
     rows = []
     for c in range(0, chunks.shape[0], 4):

@@ -1,39 +1,65 @@
-// Register-tiled exact-f32 sample-by-codebook tiling for Hopper (sm_90a),
-// shared by K5-K7 (elementwise.cu) and K8 (manhattan.cu). K4 left it for
-// the TF32 tensor cores (highest.cu): a dot product has a matrix-unit
-// form, the elementwise L1 and |x - w|^p terms do not, so these kernels
-// stay on the FP32 pipes, where their term's instruction count bounds
-// them.
+// Register-tiled exact-f32 sample-by-codebook engine for Hopper (sm_90a),
+// shared by K5-K7 (elementwise.cu) and K8 (manhattan.cu). The elementwise
+// L1 and |x - w|^p terms have no matrix-unit form, so these kernels run on
+// the FP32 pipes (and, for K7, the special-function pipe), where the count
+// of instructions per term bounds them.
 //
-// For every sample row n and codebook row j the tiling computes
-//     d[n, j] = finish(sum_d term(x[n, d], w[j, d]))
-// and hands each tile of d to an epilogue: the BMU searches fold it into a
-// running first-index (value, index) minimum, so the (N, XY) distance
-// matrix never reaches device memory (tile_argmin_kernel); K8 stores it
-// (tile_store_kernel). The per-pair sum runs SERIALLY over d in index
-// order in one f32 accumulator: the order of the Pallas kernels' bodies (a
-// Python loop over d adding into one tile accumulator) and of the plain
-// PyTorch versions (one d at a time into an (N, XY) accumulator). With
-// explicitly rounded arithmetic in the term (no FMA contraction) the
-// elementwise kernels thus give the plain versions' bits.
+// For every sample row n and codebook row j the engine computes
+//     d[n, j] = sum_d term(|x[n, d] - w[j, d]|)
+// and hands each finished tile to an epilogue: the BMU searches fold it
+// into a running first-index (value, index) minimum, so the (N, XY)
+// distance matrix never reaches device memory; K8 stores it. The per-pair
+// sum runs SERIALLY over d in index order in one f32 accumulator from 0:
+// the order of the Pallas kernels' bodies (a Python loop over d adding into
+// one tile accumulator) and of the plain PyTorch versions (one d at a time
+// into an (N, XY) accumulator). Every subtract, multiply and add is
+// explicitly rounded (__fsub_rn, __fmul_rn, __fadd_rn), so no FMA forms and
+// K5, K6 and K8 give the plain versions' bits.
 //
-// Design (simple first version):
-//   * one block owns BM = 64 sample rows and loops over ALL codebook tiles
-//     of BN = 64 rows itself; the loop takes the place of the TPU's
-//     sequential grid axis, so nothing carries between blocks;
-//   * per tile, x and w are staged through shared memory in BK = 16-deep
-//     chunks of d, transposed so that each of the 16 x 16 threads reads its
-//     4 rows and 4 codebook rows as one 16-byte vector per d (tile_sums);
-//   * each thread keeps a 4 x 4 register tile of accumulators;
-//   * the argmin epilogue is K1's: per row, the thread's 4 columns in
-//     increasing order, then a lexicographic (value, index) merge over the
-//     16 lanes that share the row (lowest index on ties), then a strict '<'
-//     against the running minimum (an earlier tile keeps a tie);
-//   * the store epilogue writes the thread's 4 x 4 values, one 16-byte
-//     vector per row where the row stride allows it.
-// Bounds: rows >= n are read as zeros and never written; codebook rows
-// >= xy are never candidates and never stored; the d loop stops at d (no
-// padded terms).
+// Design:
+//   * layout pre-pass (layout_f32_kernel in elementwise.cu): an operand of
+//     R rows x d is written as tiles of T rows (T = BM for the samples, BN
+//     for the codebook), each tile as nk = ceil(d / KC) chunks of KC depth,
+//     each chunk d-major ([k][row], zero past the rows and past d), so one
+//     chunk is one contiguous bulk copy and a thread reads its rows or
+//     columns at one depth as 16-byte vectors. The codebook is laid out once
+//     per ElementwiseCodebook (once per epoch or scoring call), the samples
+//     once per call;
+//   * a block owns BM = 64 sample rows and walks one segment of the
+//     codebook's BN = 128-row tiles (blockIdx.y; the wrapper's tile_plan
+//     cuts the codebook into segments so that about two blocks per SM are
+//     in flight when the sample rows alone would leave SMs idle). Its
+//     samples stay resident in shared memory for the whole walk, copied
+//     once, where the padded depth is <= RESIDENT_D; deeper samples go
+//     through in d-slabs of KC beside the codebook chunk in each stage;
+//   * one producer thread streams the codebook chunks by cp.async.bulk into
+//     a ring of STAGES stages on mbarriers ("full"); the four consumer warps
+//     release a stage on a second mbarrier ("empty", one arrival per warp),
+//     so copies run ahead of the sums with no block barrier;
+//   * each consumer thread keeps an 8 x 8 register tile of accumulators:
+//     rows 4ty .. +3 and 32 + 4ty .. +3, codebook rows 4tx .. +3 and
+//     64 + 4tx .. +3 of the tile (tx = tid % 16, ty = tid / 16), read per
+//     depth as four 16-byte shared-memory vectors, conflict-free, the next
+//     depth's vectors loaded while this one's 64 terms run. A term's chain
+//     (K6's and K7's multiplies by t) runs over one row's 8 terms at once,
+//     unrolled where the count is a template argument;
+//   * the argmin epilogue: per row, the minimum of the thread's 8 columns
+//     (fminf), and only where it is below the running minimum the first
+//     column holding it; a strict '<' against the running minimum keeps an
+//     earlier tile's tie. After the segment, a lexicographic (value, index)
+//     merge over the 16 lanes that share a row; with several segments each
+//     writes its (value, index) and merge_kernel (elementwise.cu) folds
+//     them in segment order with a strict '<', so the first index wins
+//     across segments too;
+//   * the store epilogue (K8) writes the thread's 8 x 8 values, 16-byte
+//     vectors where the row stride allows it.
+// Bounds: sample rows >= n are zero in the layout and never written;
+// codebook rows >= xy are never candidates and never stored; the d loop
+// stops at d (padded depth is never summed).
+// The instances' times, registers and SASS instructions per term are in
+// PERF.md (chip_smoke.py prints them). The constants are fixed: three
+// blocks per SM (launch bounds forcing 128 registers), a fourth stage and
+// a deeper unroll were each tried on the H100 and none was faster.
 
 #pragma once
 
@@ -41,255 +67,353 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <climits>
+#include "sm90.cuh"  // bulk copies, mbarriers, lex_less
 
 namespace xps_tile {
 
-constexpr int BM = 64;        // sample rows per block
-constexpr int BN = 64;        // codebook rows per tile
-constexpr int BK = 16;        // depth of d per staged chunk
-constexpr int TM = 4;         // rows per thread
-constexpr int TN = 4;         // codebook rows per thread
-constexpr int THREADS = 256;  // 16 (row groups) x 16 (column groups)
-constexpr int LD = BM + 4;    // shared stride in floats: 16-byte rows
-static_assert(BM == BN, "x and w tiles share the staging layout");
-static_assert(BM == 16 * TM && BN == 16 * TN, "16 x 16 threads cover a tile");
-static_assert((BM * BK) % THREADS == 0, "whole staging rounds");
+using namespace xps_sm90;
 
-__device__ __forceinline__ bool lex_less(float va, int ia, float vb, int ib) {
-  return va < vb || (va == vb && ia < ib);
+constexpr int BM = 64;   // sample rows per block
+constexpr int BN = 128;  // codebook rows per tile
+constexpr int KC = 32;   // depth of a laid-out chunk and of a stage
+constexpr int TM = 8;    // rows per thread
+constexpr int TN = 8;    // codebook rows per thread
+constexpr int CONSUMERS = (BM / TM) * (BN / TN);  // 8 row groups x 16 column groups
+constexpr int THREADS = CONSUMERS + 32;           // and one producer warp
+constexpr int STAGES = 3;
+constexpr int RESIDENT_D = 256;  // samples stay resident up to this padded depth
+constexpr int X_CHUNK = BM * KC * 4;  // bytes of a samples chunk
+constexpr int W_CHUNK = BN * KC * 4;  // bytes of a codebook chunk
+static_assert(CONSUMERS == 128, "four consumer warps");
+
+// dynamic shared memory of a launch at padded depth d32: the resident
+// samples, then the ring of codebook chunks; or the ring of (codebook
+// chunk, samples chunk) stages
+__host__ __device__ constexpr int smem_bytes(int d32) {
+  return d32 <= RESIDENT_D ? BM * d32 * 4 + STAGES * W_CHUNK : STAGES * (W_CHUNK + X_CHUNK);
 }
+constexpr int MAX_SMEM = smem_bytes(RESIDENT_D) > smem_bytes(RESIDENT_D + KC)
+                             ? smem_bytes(RESIDENT_D)
+                             : smem_bytes(RESIDENT_D + KC);
+static_assert(MAX_SMEM <= 227 * 1024, "shared memory of a block");
 
 // |a - b| with the subtraction explicitly rounded
 __device__ __forceinline__ float absdiff(float a, float b) { return fabsf(__fsub_rn(a, b)); }
 
-// The L1 term of K5's search and K8's matrix: acc + |x_d - w_d|, rounded
+// The terms: base(t) of t = |x_d - w_d|, then REPS rounded multiplies by t
+// (REPS < 0: reps, passed at run time), then one rounded add.
+// K5 and K8: t.
 struct L1Term {
-  static constexpr bool kChain = false;
-  __device__ __forceinline__ float operator()(float acc, float a, float b) const {
-    return __fadd_rn(acc, absdiff(a, b));
-  }
-  __device__ __forceinline__ float finish(float acc, int) const { return acc; }
+  static constexpr int REPS = 0;
+  int reps = 0;
+  __device__ __forceinline__ float base(float t) const { return t; }
 };
 
-// Term, one of two forms:
-//   kChain == false: acc' = term(acc, x_d, w_d);
-//   kChain == true:  acc' = acc + base(x_d, w_d, t) * t * ... * t, with
-//     term.reps multiplies, each rounded. The loop runs the multiply chain
-//     over all 16 terms of a step together, so a repetition count known
-//     only at run time does not serialize the 16 independent terms (a loop
-//     inside each term made K7 4x slower).
-// in index order of d; the epilogue then applies term.finish(acc, column).
-//
-// tile_sums fills acc with the sums of the tile at sample rows row0 ..
-// +BM and codebook rows col0 .. +BN (this thread's 4 x 4 of them); it
-// begins and ends with every thread past a barrier, so the shared staging
-// buffers are free on return.
-template <class Term>
-__device__ __forceinline__ void tile_sums(const float* __restrict__ x,
-                                          const float* __restrict__ w, int n, int d,
-                                          int xy, int row0, int col0, const Term& term,
-                                          float* xs, float* ws, float (&acc)[TM][TN]) {
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;  // column group: codebook rows tx*TN .. +TN-1
-  const int ty = tid >> 4;  // row group: sample rows ty*TM .. +TM-1
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int c = 0; c < TN; ++c) acc[i][c] = 0.0f;
+// K6: t^p = t * t^(p - 1) for odd p >= 1: REPS = p - 1
+template <int R>
+struct PowTerm {
+  static constexpr int REPS = R;
+  int reps;
+  __device__ __forceinline__ float base(float t) const { return t; }
+};
 
-  for (int k0 = 0; k0 < d; k0 += BK) {
-    const int kc = min(BK, d - k0);
-    // stage x[row0 .. +BM, k0 .. +kc] and w[col0 .. +BN, k0 .. +kc],
-    // transposed: sixteen neighbouring threads read one row's chunk
+// K7: p = m + f with m = floor(p) and 0 < f < 1: t^f, then REPS = m
+// multiplies by t. t^f on the special-function pipe: sqrt.approx (f = 1/2)
+// or ex2.approx(f * lg2.approx(t)); t = 0 gives 0 and t = +inf gives +inf.
+// For m = 0 subnormal t and results are kept (the non-.ftz forms' scaling
+// costs 4 to 7 more instructions a term); for m >= 1 (REPS != 0) the .ftz
+// forms flush them, which changes only
+// terms below 2^-126, each by less than 2^-126 (a flushed t or t^f bounds
+// the term, as t^p <= t^f < 1 there).
+template <bool FTZ>
+__device__ __forceinline__ float sqrt_approx(float t) {
+  float r;
+  if constexpr (FTZ) {
+    asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(t));
+  } else {
+    asm("sqrt.approx.f32 %0, %1;" : "=f"(r) : "f"(t));
+  }
+  return r;
+}
+template <bool FTZ>
+__device__ __forceinline__ float lg2_approx(float t) {
+  float r;
+  if constexpr (FTZ) {
+    asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(t));
+  } else {
+    asm("lg2.approx.f32 %0, %1;" : "=f"(r) : "f"(t));
+  }
+  return r;
+}
+template <bool FTZ>
+__device__ __forceinline__ float ex2_approx(float y) {
+  float r;
+  if constexpr (FTZ) {
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(y));
+  } else {
+    asm("ex2.approx.f32 %0, %1;" : "=f"(r) : "f"(y));
+  }
+  return r;
+}
+
+template <bool HALF, int R>
+struct FracTerm {
+  static constexpr int REPS = R;
+  static constexpr bool FTZ = R != 0;
+  int reps;
+  float f;
+  __device__ __forceinline__ float base(float t) const {
+    return HALF ? sqrt_approx<FTZ>(t) : ex2_approx<FTZ>(__fmul_rn(f, lg2_approx<FTZ>(t)));
+  }
+};
+
+// the thread's i-th row and j-th codebook row of a tile
+__device__ __forceinline__ int row_of(int i, int ty) { return (i >> 2) * 32 + 4 * ty + (i & 3); }
+__device__ __forceinline__ int col_of(int j, int tx) { return (j >> 2) * 64 + 4 * tx + (j & 3); }
+
+struct Operands {
+  float4 a0, a1, b0, b1;
+};
+
+// the thread's samples and codebook rows at one depth: xk = the chunk's
+// samples at that depth (BM floats), wk = its codebook rows (BN floats)
+__device__ __forceinline__ Operands load_depth(const float* xk, const float* wk, int ty, int tx) {
+  const float4* x4 = reinterpret_cast<const float4*>(xk);
+  const float4* w4 = reinterpret_cast<const float4*>(wk);
+  return {x4[ty], x4[8 + ty], w4[tx], w4[16 + tx]};
+}
+
+// acc[i][j] += term of the thread's 8 x 8 pairs at one depth, row by row
+template <class Term>
+__device__ __forceinline__ void add_depth(const Term& term, const Operands& o,
+                                          float (&acc)[TM][TN]) {
+  const float a[TM] = {o.a0.x, o.a0.y, o.a0.z, o.a0.w, o.a1.x, o.a1.y, o.a1.z, o.a1.w};
+  const float b[TN] = {o.b0.x, o.b0.y, o.b0.z, o.b0.w, o.b1.x, o.b1.y, o.b1.z, o.b1.w};
 #pragma unroll
-    for (int it = 0; it < (BM * BK) / THREADS; ++it) {
-      const int e = tid + it * THREADS;
-      const int r = e / BK;
-      const int kk = e % BK;
-      const int gr = row0 + r;
-      const int gc = col0 + r;
-      float xv = 0.0f, wv = 0.0f;
-      if (kk < kc) {
-        if (gr < n) xv = x[(size_t)gr * d + k0 + kk];
-        if (gc < xy) wv = w[(size_t)gc * d + k0 + kk];
-      }
-      xs[kk * LD + r] = xv;
-      ws[kk * LD + r] = wv;
+  for (int i = 0; i < TM; ++i) {
+    float t[TN], tp[TN];
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      t[j] = absdiff(a[i], b[j]);
+      tp[j] = term.base(t[j]);
     }
-    __syncthreads();
-    auto step = [&](int kk) {
-      const float4 a4 = *reinterpret_cast<const float4*>(xs + kk * LD + ty * TM);
-      const float4 b4 = *reinterpret_cast<const float4*>(ws + kk * LD + tx * TN);
-      const float a[TM] = {a4.x, a4.y, a4.z, a4.w};
-      const float b[TN] = {b4.x, b4.y, b4.z, b4.w};
-      if constexpr (Term::kChain) {
-        float t[TM][TN], tp[TM][TN];
+    if constexpr (Term::REPS > 0) {
 #pragma unroll
-        for (int i = 0; i < TM; ++i)
+      for (int r = 0; r < Term::REPS; ++r)
 #pragma unroll
-          for (int c = 0; c < TN; ++c) tp[i][c] = term.base(a[i], b[c], t[i][c]);
-        for (int r = 0; r < term.reps; ++r)
+        for (int j = 0; j < TN; ++j) tp[j] = __fmul_rn(tp[j], t[j]);
+    } else if constexpr (Term::REPS < 0) {
+#pragma unroll 1
+      for (int r = 0; r < term.reps; ++r)
 #pragma unroll
-          for (int i = 0; i < TM; ++i)
-#pragma unroll
-            for (int c = 0; c < TN; ++c) tp[i][c] = __fmul_rn(tp[i][c], t[i][c]);
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int c = 0; c < TN; ++c) acc[i][c] = __fadd_rn(acc[i][c], tp[i][c]);
-      } else {
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int c = 0; c < TN; ++c) acc[i][c] = term(acc[i][c], a[i], b[c]);
-      }
-    };
-    if (kc == BK) {
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) step(kk);
-    } else {
-      for (int kk = 0; kk < kc; ++kk) step(kk);
+        for (int j = 0; j < TN; ++j) tp[j] = __fmul_rn(tp[j], t[j]);
     }
-    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = __fadd_rn(acc[i][j], tp[j]);
   }
 }
 
+// the sums of kc depths of one chunk (xs: the samples chunk, ws: the
+// codebook chunk, both d-major), the next depth's operands loaded ahead
 template <class Term>
+__device__ __forceinline__ void add_chunk(const Term& term, const float* xs, const float* ws,
+                                          int kc, int ty, int tx, float (&acc)[TM][TN]) {
+  Operands cur = load_depth(xs, ws, ty, tx);
+  if (kc == KC) {
+#pragma unroll 4
+    for (int k = 0; k < KC; ++k) {
+      const int kn = min(k + 1, KC - 1);
+      const Operands next = load_depth(xs + kn * BM, ws + kn * BN, ty, tx);
+      add_depth(term, cur, acc);
+      cur = next;
+    }
+  } else {
+#pragma unroll 1
+    for (int k = 0; k < kc; ++k) {
+      const int kn = min(k + 1, kc - 1);
+      const Operands next = load_depth(xs + kn * BM, ws + kn * BN, ty, tx);
+      add_depth(term, cur, acc);
+      cur = next;
+    }
+  }
+}
+
+// xl: the samples laid out in BM-row tiles; wl: the codebook laid out in
+// BN-row tiles (both at padded depth nk * KC); tps: codebook tiles per
+// segment (blockIdx.y). Search (STORE false): the (value, index) of each
+// row's first-index minimum over the segment into val_out / idx_out at
+// [blockIdx.y * n + row]. STORE: the sums into out (n x xy, row-major).
+template <class Term, bool STORE>
 __global__ void __launch_bounds__(THREADS)
-tile_argmin_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   int n, int d, int xy, Term term, int* __restrict__ idx_out,
-                   float* __restrict__ val_out) {
-  __shared__ __align__(16) float xs[BK * LD];
-  __shared__ __align__(16) float ws[BK * LD];
+tile_kernel(const float* __restrict__ xl, const float* __restrict__ wl, int n, int d, int xy,
+            int tps, Term term, int* __restrict__ idx_out, float* __restrict__ val_out,
+            float* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[STAGES];   // stage landed
+  __shared__ __align__(8) uint64_t empty[STAGES];  // stage released by every consumer warp
+  __shared__ __align__(8) uint64_t x_full;         // resident samples landed
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int row0 = blockIdx.x * BM;
+  const int nk = (d + KC - 1) / KC;
+  const int d32 = nk * KC;
+  const bool resident = d32 <= RESIDENT_D;
+  const int ntiles = (xy + BN - 1) / BN;
+  const int t0 = blockIdx.y * tps;
+  const int total = (min(ntiles, t0 + tps) - t0) * nk;  // stages of this block's walk
+  const float* xb = xl + (size_t)blockIdx.x * BM * d32;  // this block's samples
+  const float* xres = reinterpret_cast<const float*>(smem);
+  unsigned char* ring = smem + (resident ? BM * d32 * 4 : 0);
+  const int stage_bytes = W_CHUNK + (resident ? 0 : X_CHUNK);
 
-  float best[TM];
-  int besti[TM];
+  if (tid == 0) {
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS / 32);
+    }
+    mbar_init(&x_full, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {  // the producer warp: one thread issues every copy
+    if (tid != CONSUMERS) return;
+    if (resident) {
+      mbar_expect_tx(&x_full, BM * d32 * 4);
+      bulk_copy(smem, xb, BM * d32 * 4, &x_full);
+    }
+    for (int it = 0; it < total; ++it) {
+      const int s = it % STAGES;
+      if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
+      const int tile = t0 + it / nk, c = it % nk;
+      unsigned char* st = ring + s * stage_bytes;
+      mbar_expect_tx(&full[s], stage_bytes);
+      bulk_copy(st, wl + ((size_t)tile * nk + c) * BN * KC, W_CHUNK, &full[s]);
+      if (!resident) bulk_copy(st + W_CHUNK, xb + (size_t)c * BM * KC, X_CHUNK, &full[s]);
+    }
+    return;
+  }
+
+  const int lane = tid & 31;
+  const int tx = tid & 15;  // column group
+  const int ty = tid >> 4;  // row group
+  float best[STORE ? 1 : TM];
+  int besti[STORE ? 1 : TM];
+#pragma unroll
+  for (int i = 0; i < (STORE ? 1 : TM); ++i) {
     best[i] = INFINITY;
     besti[i] = 0;
   }
+  float acc[TM][TN];
 
-  const int ntiles = (xy + BN - 1) / BN;
-  for (int j = 0; j < ntiles; ++j) {
-    const int col0 = j * BN;
-    float acc[TM][TN];
-    tile_sums(x, w, n, d, xy, row0, col0, term, xs, ws, acc);
+  if (resident) mbar_wait(&x_full, 0);
+  for (int it = 0; it < total; ++it) {
+    const int s = it % STAGES;
+    const int tile = t0 + it / nk, c = it % nk;
+    if (c == 0) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+    }
+    mbar_wait(&full[s], (it / STAGES) & 1);
+    const float* ws = reinterpret_cast<const float*>(ring + s * stage_bytes);
+    const float* xs = resident ? xres + c * KC * BM : ws + BN * KC;
+    add_chunk(term, xs, ws, min(KC, d - c * KC), ty, tx, acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    if (c != nk - 1) continue;
 
+    const int col0 = tile * BN;
+    const int lim = xy - col0;  // columns below lim are codebook rows
+    if constexpr (STORE) {
+      const bool vec = (xy & 3) == 0;
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      // this thread's columns, in increasing index order
-      float tv = INFINITY;
-      int ti = INT_MAX;
+      for (int i = 0; i < TM; ++i) {
+        const int row = blockIdx.x * BM + row_of(i, ty);
+        if (row >= n) continue;
+        float* o = out + (size_t)row * xy + col0;
 #pragma unroll
-      for (int c = 0; c < TN; ++c) {
-        const int gc = col0 + tx * TN + c;
-        if (gc < xy) {
-          const float v = term.finish(acc[i][c], gc);
-          if (lex_less(v, gc, tv, ti)) {
-            tv = v;
-            ti = gc;
+        for (int h = 0; h < 2; ++h) {
+          const int cb = h * 64 + 4 * tx;
+          if (vec && cb + 4 <= lim) {
+            *reinterpret_cast<float4*>(o + cb) =
+                make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (cb + e < lim) o[cb + e] = acc[i][4 * h + e];
           }
         }
       }
-      // the 16 lanes of a row group (one half-warp) merge lexicographically
+    } else {
+      const bool full_tile = lim >= BN;
 #pragma unroll
-      for (int off = 1; off < 16; off <<= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, tv, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, ti, off);
-        if (lex_less(ov, oi, tv, ti)) {
-          tv = ov;
-          ti = oi;
+      for (int i = 0; i < TM; ++i) {
+        float m = INFINITY;
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          if (full_tile || col_of(j, tx) < lim) m = fminf(m, acc[i][j]);
+        // a new minimum of the row: the first of the thread's columns
+        // (increasing index order) that holds it
+        if (m < best[i]) {
+          int jj = 0;
+#pragma unroll
+          for (int j = TN - 1; j >= 0; --j)
+            if (acc[i][j] == m && (full_tile || col_of(j, tx) < lim)) jj = j;
+          best[i] = m;
+          besti[i] = col0 + col_of(jj, tx);
         }
       }
-      // later tiles hold higher indices: strict '<' keeps the first
-      if (tv < best[i]) {
-        best[i] = tv;
-        besti[i] = ti;
-      }
     }
   }
 
-  if (tx == 0) {
+  if constexpr (!STORE) {
+    // the 16 lanes of a row group (one half-warp) merge lexicographically
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
-      const int gr = row0 + ty * TM + i;
-      if (gr < n) {
-        idx_out[gr] = besti[i];
-        val_out[gr] = best[i];
+      float v = best[i];
+      int bi = besti[i];
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+        if (lex_less(ov, oi, v, bi)) {
+          v = ov;
+          bi = oi;
+        }
+      }
+      const int row = blockIdx.x * BM + row_of(i, ty);
+      if (tx == 0 && row < n) {
+        idx_out[(size_t)blockIdx.y * n + row] = bi;
+        val_out[(size_t)blockIdx.y * n + row] = v;
       }
     }
   }
 }
 
-// The whole (n, xy) matrix of term.finish(sums) into out (row-major, row
-// stride xy). A 16-byte vector per thread and row where xy % 4 == 0 (every
-// row then starts 16-byte aligned and a thread's 4 columns are all in
-// range or all out), single stores otherwise.
-template <class Term>
-__global__ void __launch_bounds__(THREADS)
-tile_store_kernel(const float* __restrict__ x, const float* __restrict__ w, int n, int d,
-                  int xy, Term term, float* __restrict__ out) {
-  __shared__ __align__(16) float xs[BK * LD];
-  __shared__ __align__(16) float ws[BK * LD];
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int row0 = blockIdx.x * BM;
-  const bool vec = (xy & 3) == 0;
-
-  const int ntiles = (xy + BN - 1) / BN;
-  for (int j = 0; j < ntiles; ++j) {
-    const int col0 = j * BN;
-    float acc[TM][TN];
-    tile_sums(x, w, n, d, xy, row0, col0, term, xs, ws, acc);
-    const int gc0 = col0 + tx * TN;
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int gr = row0 + ty * TM + i;
-      if (gr >= n) continue;
-      float* o = out + (size_t)gr * xy + gc0;
-      if (vec) {
-        if (gc0 < xy)
-          *reinterpret_cast<float4*>(o) =
-              make_float4(term.finish(acc[i][0], gc0), term.finish(acc[i][1], gc0 + 1),
-                          term.finish(acc[i][2], gc0 + 2), term.finish(acc[i][3], gc0 + 3));
-      } else {
-#pragma unroll
-        for (int c = 0; c < TN; ++c)
-          if (gc0 + c < xy) o[c] = term.finish(acc[i][c], gc0 + c);
-      }
-    }
-  }
+// codebook segments of a walk with tps tiles per segment
+__host__ __device__ inline int segments(int xy, int tps) {
+  return ((xy + BN - 1) / BN + tps - 1) / tps;
 }
 
-// Launches the search on `stream`; returns cudaGetLastError().
-template <class Term>
-int launch_tile_argmin(const float* x, const float* w, int n, int d, int xy,
-                       Term term, int* idx, float* val, void* stream) {
-  if (n > 0) {
-    tile_argmin_kernel<Term><<<(n + BM - 1) / BM, THREADS, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-        x, w, n, d, xy, term, idx, val);
+// Launches the engine on `stream` (n > 0, d > 0, xy > 0, tps > 0): the
+// search into idx / val (segment s at [s * n + row]), or the store into
+// out. Returns cudaGetLastError().
+template <class Term, bool STORE>
+int launch(const float* xl, const float* wl, int n, int d, int xy, int tps, Term term, int* idx,
+           float* val, float* out, cudaStream_t stream) {
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        tile_kernel<Term, STORE>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = true;
   }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Launches the store on `stream`; returns cudaGetLastError().
-template <class Term>
-int launch_tile_store(const float* x, const float* w, int n, int d, int xy, Term term,
-                      float* out, void* stream) {
-  if (n > 0) {
-    tile_store_kernel<Term><<<(n + BM - 1) / BM, THREADS, 0,
-                              static_cast<cudaStream_t>(stream)>>>(x, w, n, d, xy, term, out);
-  }
+  const int nk = (d + KC - 1) / KC;
+  tile_kernel<Term, STORE>
+      <<<dim3((n + BM - 1) / BM, segments(xy, tps)), THREADS, smem_bytes(nk * KC), stream>>>(
+          xl, wl, n, d, xy, tps, term, idx, val, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,9 +3,10 @@
 The sources in ``xpysom_dask_tpu_torch/csrc/`` are compiled at first use
 by ``nvcc`` for ``sm_90a`` — one ``nvcc -c`` per source, all started
 together — and linked into one shared library under ``build/kernels/`` at
-the repository root. The file name carries a hash of the sources, headers
-and flags, so an edited source is rebuilt and a stale library is never
-loaded. Nothing here runs at import time; the CPU paths never call
+the repository root, with the compilers' output (ptxas's ``-v`` report)
+beside it as ``.log``. The file name carries a hash of the sources,
+headers and flags, so an edited source is rebuilt and a stale library is
+never loaded. Nothing here runs at import time; the CPU paths never call
 :func:`load_library`.
 """
 
@@ -49,17 +50,18 @@ _SIGNATURES = {
     "xps_scatter_stats": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
     "xps_bmu_highest": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     "xps_split_tf32": (_P, _I, _I, _P, _P, _P),
-    "xps_bmu_manhattan": (_P, _P, _I, _I, _I, _P, _P, _P),
-    "xps_bmu_lp_odd": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
-    "xps_bmu_lp_frac": (_P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P),
-    "xps_manhattan_distance": (_P, _P, _I, _I, _I, _P, _P),
+    "xps_layout_f32": (_P, _I, _I, _L, _I, _P, _P),
+    "xps_bmu_manhattan": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    "xps_bmu_lp_odd": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    "xps_bmu_lp_frac": (_P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P),
+    "xps_manhattan_distance": (_P, _P, _I, _I, _I, _I, _P, _P),
     "xps_bmu_stats_fused": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
 }
 
 _lock = threading.Lock()
 _lib = None
 last_build_seconds = None  # wall time of this process's build, if it built
-last_build_log = None  # the compilers' output of that build
+last_build_log = None  # the compilers' output of the loaded library's build
 
 
 def build_dir() -> Path:
@@ -112,7 +114,7 @@ def _run(cmds) -> list:
 
 
 def _build(out: Path) -> None:
-    global last_build_seconds, last_build_log
+    global last_build_seconds
     out.parent.mkdir(parents=True, exist_ok=True)
     stem = out.with_suffix(f".{os.getpid()}")
     objs = [Path(f"{stem}.{Path(s).stem}.o") for s in SOURCES]
@@ -123,22 +125,24 @@ def _build(out: Path) -> None:
         log = _run([[nvcc, *_FLAGS, "-c", "-o", str(o), str(_CSRC / s)]
                     for s, o in zip(SOURCES, objs)])
         _run([[nvcc, *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)]])
+        out.with_suffix(".log").write_text("\n".join(log))
         os.replace(tmp, out)
     finally:
         for f in (*objs, tmp):
             f.unlink(missing_ok=True)
     last_build_seconds = time.perf_counter() - t0
-    last_build_log = "\n".join(log)
 
 
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; cached per process."""
-    global _lib
+    global _lib, last_build_log
     with _lock:
         if _lib is None:
             path = build_dir() / f"libxpysom_kernels_{_digest()}.so"
             if not path.exists():
                 _build(path)
+            log = path.with_suffix(".log")
+            last_build_log = log.read_text() if log.exists() else None
             lib = ctypes.CDLL(str(path))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)

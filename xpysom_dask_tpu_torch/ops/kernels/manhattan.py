@@ -3,7 +3,8 @@
 Counterpart of ``xpysom_dask_tpu/ops/pallas/manhattan.py``: the full
 (N, XY) matrix ``Σ_d |x_n − w_j|`` that ``ops/distances.manhattan_distance``
 returns, and through it ``XPySom.activate`` under the manhattan
-activation. The kernel (``csrc/manhattan.cu``) and the plain version both
+activation. The kernel (``csrc/manhattan.cu``, on K5's engine
+``csrc/tile_argmin.cuh``) and the plain version both
 add the terms over d in index order from 0, as the Pallas kernel does, so
 all three agree bit for bit.
 
@@ -13,11 +14,8 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
-import torch
-
 from ..distances import manhattan_distance_no_opt
-from . import build
-from .tile import check_tile_operands
+from .tile import check_tile_operands, launch_tile_store
 
 __all__ = ["manhattan_distance", "manhattan_distance_plain"]
 
@@ -35,23 +33,13 @@ def manhattan_distance(x, w):
     Source note: replaces ``_kernel`` of xpysom_dask_tpu/ops/pallas/
     manhattan.py. Bound by the FP32 pipes on the H100 (two instructions
     per term, 1.7e10 terms per flagship chunk) ahead of its 1.07 GB of
-    output; K5's register tiling with a store epilogue (csrc/manhattan.cu
-    on csrc/tile_argmin.cuh)."""
+    output; K5's engine with a store epilogue (csrc/manhattan.cu on
+    csrc/tile_argmin.cuh), the codebook laid out per call and cut into
+    segments so that activate's 1024-row chunks fill the card."""
     check_tile_operands(x, w)
     if x.device.type == "cpu":
         return manhattan_distance_plain(x, w)
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("the tile kernels take contiguous operands")
-    n, d = x.shape
-    xy = w.shape[0]
-    if max(n, d, xy) >= 2**31:
-        raise ValueError("operand sizes must fit 32-bit ints")
-    out = torch.empty((n, xy), dtype=torch.float32, device=x.device)
-    rc = build.load_library().xps_manhattan_distance(
-        x.data_ptr(), w.data_ptr(), n, d, xy, out.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    build.check(rc, "manhattan_distance")
+    out = launch_tile_store("xps_manhattan_distance", x, w)
     manhattan_distance.launches += 1
     return out
 
