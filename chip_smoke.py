@@ -15,8 +15,9 @@ an earlier commit), so two trees can be compared on one card in one call.
 Phases (each prints lines; any failure raises and exits non-zero):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build of the kernel library from ``xpysom_dask_tpu_torch/csrc``, with
-     ptxas's registers and spills per kernel and, from the SASS of the
-     elementwise engine's main loop, its instructions per term;
+     ptxas's registers and spills per kernel (failing on a serialized
+     wgmma, warning C7515 or C7520, or on spills in K10) and, from the SASS
+     of the elementwise engine's main loop, its instructions per term;
   3. the wgmma searches' layout pre-pass bit for bit against its plain
      index map; K1 (packed BMU argmin, wgmma) and K2 (its top-2 form, the
      same wgmma search) against their plain PyTorch versions on the card
@@ -96,14 +97,20 @@ Phases (each prints lines; any failure raises and exits non-zero):
  14. the fused-statistics epoch (K10): two epochs of the flagship
      (128x128x64, 2^19 samples, chunk 16384) whose statistics come from
      K10, bitwise equal to the same epochs from K1 + K9 and to a second
-     run; K10 bitwise against K1 + K9 on a uniform, a ragged and the
-     skewed first chunk, timed per chunk against K1 + K9.
+     run; K10 bitwise against K1 + K9 (and two launches equal) on a
+     uniform, a ragged and the skewed first chunk, on n = 65536 (512 row
+     blocks: the persistent search wraps), 200 x 100 and 200 x 200 nodes
+     (the latter: some groups take two node ranges) and D = 200 (two
+     column passes), timed per chunk
+     against K1 + K9 as an epoch runs them, K10's kernel alone against
+     K1's (CUDA events) beside K9's device time, torch.profiler's device
+     times by kernel, and per epoch.
 Each kernel's record carries its launches on the path that runs it, its
 error against the plain version, its time, the plain version's, the time
 of one PyTorch library call that computes the same function where there
 is one, and its bound: the least time the card could take, from this
-run's shapes and the H100's published peaks; the elementwise engine's
-kernels (K5-K8) also their registers and spill bytes.
+run's shapes and the H100's published peaks, and its registers and
+spill bytes from ptxas.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
@@ -314,6 +321,16 @@ def phase_build():
     for name, (regs, st, ld) in sorted(report.items()):
         print(f"ptxas: {name}: {regs} registers, spill stores {st} bytes, spill loads {ld} "
               "bytes (sm_90a)")
+    if log:
+        # ptxas serializes wgmmas whose accumulators other instructions touch
+        # in flight (C7515) or that lie on a path it takes as divergent
+        # (C7520): either costs a wgmma search most of its speed
+        serial = [line for line in log.splitlines() if re.search(r"C75(15|20)", line)]
+        require(not serial, "ptxas serialized wgmmas:\n" + "\n".join(serial))
+        k10 = report.get("fused_stats_kernel")
+        require(k10 is not None, "ptxas reported no fused_stats_kernel (K10)")
+        require(k10[1] == k10[2] == 0, f"K10 spills: {k10}")
+        print(f"build log: no wgmma serialized (C7515/C7520); K10 {k10[0]} registers, no spills")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     lib = build.build_dir() / f"libxpysom_kernels_{build._digest()}.so"
     if log and os.path.isfile(cuobjdump):
@@ -575,6 +592,18 @@ def _profile_split(torch, fn):
         if split:
             break
     return split
+
+
+def _profile_kernels(torch, fn, names):
+    """``{name: device us}`` of one call of ``fn`` for kernels whose names
+    contain each of ``names`` (torch.profiler, up to three traces until
+    every one shows); empty where a trace never did."""
+    for _ in range(3):
+        split = _profile_split(torch, fn)
+        got = {n: sum(v for k, v in split.items() if n in k) for n in names}
+        if all(any(n in k for k in split) for n in names):
+            return got
+    return {}
 
 
 def k9_chunks(torch, kb, x, idx_k1):
@@ -2097,7 +2126,7 @@ def phase_kblock(torch, card):
 def _fused_vs_k1_k9(torch, name, x, w, m):
     """K10 on one chunk against K1 + K9 on the same uncentered packed
     operands (winners and statistics bitwise) and against itself; returns
-    the operands."""
+    the codebook and the longest run."""
     from xpysom_dask_tpu_torch.ops.kernels import bmu as kb
     from xpysom_dask_tpu_torch.ops.kernels import fused_stats as kf
     from xpysom_dask_tpu_torch.ops.kernels import stats as ks
@@ -2124,8 +2153,10 @@ def phase_fused_epoch(torch, card):
     """Two flagship epochs whose statistics come from K10 (the counters
     read around them), bitwise against the same epochs from K1 + K9 and a
     second run; K10 against K1 + K9 on a uniform, a ragged and the skewed
-    first chunk, with per-chunk and per-epoch times. Returns the launches,
-    the error, the record's timings and bound."""
+    first chunk and on n = 65536, 20000 and 40000 nodes and D = 200, with
+    per-chunk times, K10's kernel alone against K1's beside K9's device
+    time, torch.profiler device times by kernel, and per-epoch times.
+    Returns the launches, the error, the record's timings and bound."""
     from xpysom_dask_tpu_torch import XPySom, core
     from xpysom_dask_tpu_torch.ops import kernels
     from xpysom_dask_tpu_torch.ops.kernels import bmu as kb
@@ -2190,6 +2221,19 @@ def phase_fused_epoch(torch, card):
                     torch.from_numpy((rng.rand(1000) > 0.2).astype(np.float32)).cuda())
     cb_s, run = _fused_vs_k1_k9(torch, "K10 skewed chunk (first chunk, initial codebook)",
                                 chunks[0], w0, mask[0])
+    # the kernel's loops: 512 row blocks on 132 SMs (the persistent search
+    # wraps, on a fresh ring per row block); 200 x 100 nodes; 200 x 200
+    # nodes (313 ranges of 128: some groups of 256 threads take two); D =
+    # 200 (two column passes, 373 ranges of 44 nodes, K = 603)
+    for label, (n_, xy_, d_) in (("n = 65536 (512 row blocks)", (65536, xy, d)),
+                                 ("200 x 100 = 20000 nodes", (f["chunk"], 20000, d)),
+                                 ("200 x 200 = 40000 nodes", (f["chunk"], 40000, d)),
+                                 ("D = 200", (f["chunk"], xy, 200))):
+        plan = kf.fused_plan(n_, xy_, d_, torch.cuda.get_device_properties(0).multi_processor_count)
+        _fused_vs_k1_k9(torch, f"K10 {label}, plan {tuple(plan)}",
+                        torch.from_numpy(rng.rand(n_, d_).astype(np.float32)).cuda(),
+                        torch.from_numpy((rng.rand(xy_, d_) * 2 - 1).astype(np.float32)).cuda(),
+                        torch.from_numpy((rng.rand(n_) > 0.05).astype(np.float32)).cuda())
 
     # against the plain version on the card: winners up to near-ties of the
     # uncentered packed operands, statistics K9's plain ones on K10's winners
@@ -2206,22 +2250,53 @@ def phase_fused_epoch(torch, card):
           "equal the plain scatter's on K10's winners bit for bit")
 
     def k1_k9(cb, x, m):
+        # as epoch_stats runs them: K1 on the codebook laid out once and the
+        # samples packed and laid out in one pass, the operands K10 reads
+        i, _ = cb.argmin(x)
+        return ks.scatter_stats(x, m, i, xy)
+
+    def k1_k9_operands(cb, x, m):
+        # the earlier yardstick: K1 through bmu_argmin on the packed operands,
+        # laying the codebook out in the call
         i, _ = kb.bmu_argmin(*cb.operands(x))
         return ks.scatter_stats(x, m, i, xy)
 
     timings = {}
     for label, (cb, x, m) in (("uniform", (cb_u, xu, mu)),
                               (f"skewed (longest run {run})", (cb_s, chunks[0], mask[0]))):
-        i, _ = kb.bmu_argmin(*cb.operands(x))
+        i, _ = cb.argmin(x)
         t = (cuda_ms(torch, lambda: kf.bmu_stats_fused(x, cb, m)),
              cuda_ms(torch, lambda: kf.bmu_stats_fused_plain(x, cb, m), reps=3, warmup=1),
              cuda_ms(torch, lambda: k1_k9(cb, x, m)),
-             cuda_ms(torch, lambda: kb.bmu_argmin(*cb.operands(x))),
-             cuda_ms(torch, lambda: ks.scatter_stats(x, m, i, xy)))
+             cuda_ms(torch, lambda: cb.argmin(x)),
+             cuda_ms(torch, lambda: ks.scatter_stats(x, m, i, xy)),
+             cuda_ms(torch, lambda: k1_k9_operands(cb, x, m)),
+             cuda_ms(torch, lambda: kf.bmu_stats_fused(x, cb, m)))
         timings[label] = t
-        print(f"time K10 {label} chunk (each with the samples' packing): fused {t[0]:.4f} ms, "
-              f"plain {t[1]:.4f} ms, K1 + K9 {t[2]:.4f} ms, of which K1 {t[3]:.4f} ms and K9 "
-              f"{t[4]:.4f} ms (CUDA events; {card})")
+        print(f"time K10 {label} chunk (each with the samples' packing): fused {t[0]:.4f} and "
+              f"{t[6]:.4f} ms, plain {t[1]:.4f} ms, K1 + K9 {t[2]:.4f} ms ({t[0] / t[2]:.3f}x), "
+              f"of which K1 {t[3]:.4f} ms and K9 {t[4]:.4f} ms; K1 + K9 through bmu_argmin on "
+              f"the packed operands {t[5]:.4f} ms (CUDA events; {card})")
+        # the phase split: the kernels alone on laid-out operands, back to
+        # back (so the events see device time), K10's against K1's, beside
+        # K9's device time; then torch.profiler's device times by kernel
+        a_l = kb.lay_out_samples(x, None, "packed")
+        n_ = x.shape[0]
+        k10_ms = cuda_ms(torch, lambda: kf._launch_k10(a_l, cb.laid()[0], n_, 3 * d + 3, xy, x, m))
+        k1_ms = cuda_ms(torch, lambda: kb._launch_k1(a_l, cb.laid()[0], n_, 3 * d + 3, xy))
+        parts = _profile_kernels(torch, lambda: k1_k9(cb, x, m),
+                                 ("gemm_sm90_kernel", "scatter_stats_kernel"))
+        k9_ms = parts["scatter_stats_kernel"] / 1e3 if parts else float("nan")
+        print(f"phase split K10 {label} chunk, the kernels alone on laid-out operands: K10 "
+              f"{k10_ms:.4f} ms, K1 {k1_ms:.4f} ms; phase 2, the grid barrier and what phase 1 "
+              f"costs beyond K1 take {k10_ms - k1_ms:.4f} ms against K9's {k9_ms:.4f} ms of "
+              f"device time (CUDA events; torch.profiler for K9; {card})")
+        split_k10 = _profile_kernels(torch, lambda: kf.bmu_stats_fused(x, cb, m),
+                                     ("fused_stats_kernel",))
+        # CUPTI's record of the cooperative launch has come back empty or
+        # short of the events' time on this card: printed, not used
+        print(f"profile K10 {label} chunk: device us by kernel {split_k10 or 'not captured'}; "
+              f"K1 + K9 {parts or 'not captured'} (torch.profiler, one call; {card})")
     for fused_flag in (True, False, True, False):
         ms = cuda_ms(torch, lambda: kf.epoch_stats(w0, chunks, mask, fused=fused_flag), reps=3,
                      warmup=1)
@@ -2240,17 +2315,23 @@ def phase_fused_epoch(torch, card):
         bound(2.0 * n * xy * k / BF16_FLOPS, nbytes)
 
 
-# the elementwise engine's instances behind each kernel of its record
-_ENGINE = {"bmu_manhattan": "<L1Term, search>", "bmu_norm_p_odd": "<PowTerm",
-           "bmu_norm_p_frac": "<FracTerm", "manhattan_distance": "<L1Term, store>"}
+# the search kernel (ptxas's name, as _kernel_name gives it; for the
+# elementwise engine the prefix of its instances) behind each kernel of the
+# record
+_PTXAS_NAMES = {
+    "bmu_argmin": "gemm_sm90_kernel <K1 ARGMIN>", "bmu_top2": "gemm_sm90_kernel <K2 TOP2>",
+    "bmu_split3": "gemm_sm90_kernel <K3 SPLIT3>",
+    "bmu_argmin_kb": "gemm_sm90_kernel <K1-kb KBLOCKED>", "bmu_highest": "bmu_highest_kernel",
+    "bmu_manhattan": "tile_kernel <L1Term, search>", "bmu_norm_p_odd": "tile_kernel <PowTerm",
+    "bmu_norm_p_frac": "tile_kernel <FracTerm", "manhattan_distance": "tile_kernel <L1Term, store>",
+    "scatter_stats": "scatter_stats_kernel", "bmu_stats_fused": "fused_stats_kernel",
+}
 
 
-def _engine_registers(name, ptxas):
-    """K5-K8's registers (the most of any instance) and spill bytes (all
+def _registers(name, ptxas):
+    """A kernel's registers (the most of any instance) and spill bytes (all
     instances) from ptxas, for the kernels' record."""
-    if name not in _ENGINE:
-        return {}
-    inst = [v for k, v in ptxas.items() if k.startswith("tile_kernel " + _ENGINE[name])]
+    inst = [v for k, v in ptxas.items() if k.startswith(_PTXAS_NAMES[name])]
     require(inst, f"ptxas reported no instance of {name}")
     return {"registers": max(v[0] for v in inst), "spill_bytes": sum(v[1] + v[2] for v in inst)}
 
@@ -2333,7 +2414,7 @@ def main(argv):
                 "bound_ms": bounds[name][0],
                 "bound_by": bounds[name][1],
                 "library_ms": timings[name][2],
-                **_engine_registers(name, ptxas),
+                **_registers(name, ptxas),
             }
             for name in REPLACES
         ],

@@ -1,0 +1,63 @@
+"""Tests of the port that need a CUDA card (marker ``cuda``; each skips
+where ``torch.cuda.is_available()`` is false, as on a CPU-only machine).
+Run them on the card with ``python -m pytest -m cuda tests/test_torch_card.py``.
+
+K10 (``bmu_stats_fused``, one cooperative launch) against the composition
+it fuses, K1 (``PackedCodebook.argmin``, the same laid-out operands) then
+K9 (``scatter_stats``): winners and statistics bit for bit, and a second
+launch the same. The fixtures reach each loop of the kernel: the flagship
+chunk (128 row blocks on 132 SMs, one node range per group of 256
+threads), a ragged chunk, n = 65536 (512 row blocks: the persistent search
+wraps, on a fresh ring per row block), 200 x 100 and 200 x 200 nodes (the
+latter 313 ranges of 128 nodes: some groups take two) and D = 200 (two
+column passes, 373 ranges of 44 nodes; K = 603)."""
+
+import numpy as np
+import pytest
+import torch
+
+from xpysom_dask_tpu_torch.ops.kernels import bmu as kb
+from xpysom_dask_tpu_torch.ops.kernels import fused_stats as kf
+from xpysom_dask_tpu_torch.ops.kernels import stats as ks
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is false)")
+    return torch.device("cuda")
+
+
+# name: (samples, nodes, D)
+FIXTURES = {
+    "uniform flagship chunk": (16384, 16384, 64),
+    "ragged": (1000, 91, 5),
+    "n = 65536": (65536, 16384, 64),
+    "xy = 20000": (16384, 20000, 64),
+    "xy = 40000": (16384, 40000, 64),
+    "D = 200": (16384, 16384, 200),
+}
+
+
+@pytest.mark.parametrize("name", list(FIXTURES))
+def test_k10_equals_k1_then_k9_bitwise(card, name):
+    n, xy, d = FIXTURES[name]
+    rng = np.random.RandomState(len(name))
+    x = torch.from_numpy(rng.rand(n, d).astype(np.float32)).to(card)
+    w = torch.from_numpy((rng.rand(xy, d) * 2 - 1).astype(np.float32)).to(card)
+    m = torch.from_numpy((rng.rand(n) > 0.05).astype(np.float32)).to(card)
+    cb = kb.PackedCodebook(w, "packed", center=False)
+    before = kf.bmu_stats_fused.launches
+    i_f, acc = kf.bmu_stats_fused(x, cb, m)
+    i_f2, acc2 = kf.bmu_stats_fused(x, cb, m)
+    assert kf.bmu_stats_fused.launches == before + 2
+    i_1, _ = cb.argmin(x)
+    acc9 = ks.scatter_stats(x, m, i_1, xy)
+    torch.cuda.synchronize()
+    assert acc.shape == (xy, d + 1)
+    assert torch.equal(i_f, i_1), "K10's winners are K1's"
+    assert torch.equal(acc.view(torch.int32), acc9.view(torch.int32)), "K10's statistics are K9's"
+    assert torch.equal(i_f2, i_f) and torch.equal(acc2.view(torch.int32), acc.view(torch.int32))
+    assert float(acc[:, -1].sum()) == float(m.sum())

@@ -226,7 +226,7 @@ def test_emulated_slab_schedule_matches_the_kblocked_plain(n, xy, d, kblock):
 
 
 def test_layout_constants_match_the_kernel_source():
-    src = (Path(kb.__file__).resolve().parents[2] / "csrc" / "gemm_sm90.cu").read_text()
+    src = (Path(kb.__file__).resolve().parents[2] / "csrc" / "gemm_sm90.cuh").read_text()
 
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))

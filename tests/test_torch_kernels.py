@@ -295,7 +295,7 @@ def test_kernel_build_is_lazy():
         "gemm_sm90.cu", "stats.cu", "highest.cu", "elementwise.cu", "manhattan.cu",
         "fused_stats.cu",
     }
-    assert build.HEADERS == ("tile_argmin.cuh", "gemm_bmu.cuh", "sm90.cuh")
+    assert build.HEADERS == ("tile_argmin.cuh", "sm90.cuh", "gemm_sm90.cuh", "stats.cuh")
     csrc = Path(kb.__file__).resolve().parents[2] / "csrc"
     for name in build.SOURCES + build.HEADERS:
         assert (csrc / name).is_file()

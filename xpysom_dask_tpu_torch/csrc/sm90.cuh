@@ -18,6 +18,11 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count));
 }
 
+// before an initialised mbarrier's memory is initialised again
+__device__ __forceinline__ void mbar_inval(uint64_t* bar) {
+  asm volatile("mbarrier.inval.shared::cta.b64 [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+
 // after the barriers of a block are initialised, before any thread uses
 // them
 __device__ __forceinline__ void mbar_fence_init() {

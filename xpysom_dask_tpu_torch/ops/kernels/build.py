@@ -28,7 +28,7 @@ _CSRC = _PKG / "csrc"
 SOURCES = (
     "gemm_sm90.cu", "stats.cu", "highest.cu", "elementwise.cu", "manhattan.cu", "fused_stats.cu",
 )
-HEADERS = ("tile_argmin.cuh", "gemm_bmu.cuh", "sm90.cuh")
+HEADERS = ("tile_argmin.cuh", "sm90.cuh", "gemm_sm90.cuh", "stats.cuh")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # -Xptxas -v: ptxas reports each kernel's registers and spills (kept in
 # last_build_log)
@@ -55,7 +55,7 @@ _SIGNATURES = {
     "xps_bmu_lp_odd": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "xps_bmu_lp_frac": (_P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P),
     "xps_manhattan_distance": (_P, _P, _I, _I, _I, _I, _P, _P),
-    "xps_bmu_stats_fused": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    "xps_bmu_stats_fused": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
 }
 
 _lock = threading.Lock()

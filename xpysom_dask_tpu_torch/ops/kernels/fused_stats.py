@@ -13,24 +13,58 @@ training route dispatches it, as no JAX path does; :func:`epoch_stats`
 runs one epoch's statistics through it or through K1 + K9 for comparison.
 
 The JAX module's ``fits_budget`` (a Mosaic VMEM formula) and ``tiles=``
-are not ported: the kernel keeps one node range's accumulator in shared
-memory and loops over ranges, so only one node's row must fit.
+are not ported: :func:`fused_plan` sizes the launch from the shapes and
+the card's SM count, and any D runs (the scatter takes columns in passes
+of at most 128).
 """
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from . import build
-from .bmu import (
-    PackedCodebook,
-    _check_kernel_layout,
-    _check_operands,
-    bmu_argmin_plain,
-)
-from .stats import scatter_stats, scatter_stats_plain
+from .bmu import GEMM_BK, GEMM_BM, K1_BN, PackedCodebook, bmu_argmin_plain
+from .stats import MAX_NODES, _sm_count, scatter_stats, scatter_stats_plain, smem_bytes
 
-__all__ = ["bmu_stats_fused", "bmu_stats_fused_plain", "epoch_stats"]
+__all__ = ["bmu_stats_fused", "bmu_stats_fused_plain", "epoch_stats", "fused_plan", "FusedPlan"]
+
+# K1's ring (csrc/gemm_sm90.cuh Cfg<ARGMIN>::SMEM_BYTES): four stages of a
+# streamed A chunk and a codebook chunk, bf16
+K1_RING_BYTES = 4 * (GEMM_BM + K1_BN) * GEMM_BK * 2
+# csrc/fused_stats.cu: phase 2's groups of 256 threads per block, and the
+# dynamic shared memory a block may take (227 KB less its static barriers)
+GROUPS = 2
+MAX_SMEM = 227 * 1024 - 1024
+
+FusedPlan = collections.namedtuple("FusedPlan", "grid row_blocks nodes ranges smem")
+
+
+def group_bytes(nodes, d):
+    """One phase-2 group's shared memory (csrc/fused_stats.cu
+    ``group_bytes``): K9's for ranges of ``nodes`` nodes, rounded up to 128
+    bytes."""
+    return -(-smem_bytes(nodes, d) // 128) * 128
+
+
+def fused_plan(n, xy, d, sms):
+    """K10's launch on a card with ``sms`` SMs, as a :class:`FusedPlan`:
+    ``grid`` blocks of 512 threads, one per SM. Phase 1 gives block b the
+    ``GEMM_BM``-row blocks b, b + grid, ... of the ``row_blocks``, searched
+    by its first 288 threads (K1's block); phase 2 gives group g of its two
+    groups of 256 threads the node ranges 2b + g, 2b + g + 2·grid, ... of
+    the ``ranges``, each ``nodes`` consecutive nodes (the last one fewer):
+    about one range per group, at most ``MAX_NODES`` nodes and as many as
+    let both groups' shared memory fit. ``smem``: the dynamic shared
+    memory, the larger of phase 1's ring and phase 2's two groups
+    (csrc/stats.cuh: each a range's sums of a column pass, its lists and
+    staging), which reuse the ring."""
+    nodes = min(MAX_NODES, max(1, -(-xy // (GROUPS * sms))))
+    while nodes > 1 and GROUPS * group_bytes(nodes, d) > MAX_SMEM:
+        nodes -= 1
+    return FusedPlan(sms, -(-n // GEMM_BM), nodes, -(-xy // nodes),
+                     max(K1_RING_BYTES, GROUPS * group_bytes(nodes, d)))
 
 
 def _packed(w):
@@ -72,33 +106,40 @@ def bmu_stats_fused(x, w_flat, mask):
     their winners are still returned.
 
     Source note: replaces ``_kernel`` of xpysom_dask_tpu/ops/pallas/
-    fused_stats.py. One cooperative launch (csrc/fused_stats.cu): K1's
-    search over persistent 64-row blocks, one grid barrier, then each
-    block sums a contiguous node range in shared memory, each node's rows
-    in row order (warp ballots over the winners): deterministic, atomic
-    free, K1's winners and K9's bits. Phase 1 is bound by the tensor cores
-    as K1; phase 2 by reading the rows and scanning the winners. Raises
-    where one node's (D+1)-float row does not fit the kernel's shared
-    memory (D in the thousands)."""
+    fused_stats.py. One cooperative launch (csrc/fused_stats.cu) on K1's
+    operands as ``PackedCodebook.argmin`` feeds K1 (the codebook laid out
+    once per object, the samples packed and laid out in one pass): K1's
+    wgmma search over persistent 128-row blocks, one grid barrier, then
+    K9's scatter over node ranges, two groups per block
+    (:func:`fused_plan`): deterministic, atomic free, K1's winners and
+    K9's bits. Phase 1 is bound by the tensor cores as K1; phase 2 by
+    reading the rows, and under skew by a long run's add chain, as K9."""
     _check(x, mask)
     cb = _packed(w_flat)
     if x.device.type == "cpu":
         return bmu_stats_fused_plain(x, cb, mask)
-    a, w_aug, xy = cb.operands(x)
-    _check_operands(a, w_aug, xy)
-    _check_kernel_layout(a, w_aug)
+    if x.device.type != "cuda" or cb.w_aug.device != x.device:
+        raise ValueError(f"x on {x.device} and the codebook on {cb.w_aug.device}: one CUDA "
+                         "device expected")
     n, d = x.shape
-    if n * d >= 2**31 or xy * (d + 1) >= 2**31:
+    if n * d >= 2**31 or cb.xy * (d + 1) >= 2**31:
         raise ValueError("operands too large for 32-bit kernel indexing")
     x = x.contiguous()
-    mask = mask.contiguous()
+    return cb._on_card(_launch_k10, x, "packed", cb.laid()[0], x, mask.contiguous())
+
+
+def _launch_k10(a_laid, w_laid, n, k, xy, x, mask):
+    """K10 on K1's laid-out operands (``a_laid`` of ``x``), counted on
+    ``bmu_stats_fused``."""
+    d = x.shape[1]
+    plan = fused_plan(n, xy, d, _sm_count(x.device.index or 0))
     idx = torch.empty(n, dtype=torch.int32, device=x.device)
     val = torch.empty(n, dtype=torch.float32, device=x.device)
     acc = torch.empty((xy, d + 1), dtype=torch.float32, device=x.device)
     rc = build.load_library().xps_bmu_stats_fused(
-        a.data_ptr(), w_aug.data_ptr(), x.data_ptr(), mask.data_ptr(), n, a.shape[1], xy,
-        w_aug.shape[1], d, idx.data_ptr(), val.data_ptr(), acc.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        a_laid.data_ptr(), w_laid.data_ptr(), x.data_ptr(), mask.data_ptr(), n,
+        -(-k // 16) * 16, xy, d, plan.grid, plan.nodes, plan.smem, idx.data_ptr(),
+        val.data_ptr(), acc.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(rc, "bmu_stats_fused")
     bmu_stats_fused.launches += 1

@@ -18,7 +18,7 @@ import torch
 
 from . import build
 
-__all__ = ["scatter_stats", "scatter_stats_plain", "stats_plan"]
+__all__ = ["scatter_stats", "scatter_stats_plain", "stats_plan", "smem_bytes"]
 
 
 def _augmented(x, m):
@@ -51,10 +51,22 @@ def scatter_stats_plain(x, m, idx, xy):
     return acc
 
 
-# csrc/stats.cu's limits: nodes per block (a uint8 node id) and columns
+# csrc/stats.cuh's limits: nodes per block (a uint8 node id) and columns
 # per pass
 MAX_NODES = 128
 MAX_COLS = 128
+# csrc/stats.cuh's shared memory past the (nodes x cols) sums: two staging
+# buffers of 8192 floats and two of 512 masks, the listed and the grouped
+# rows (2048 each) and the listed rows' node ids, per-warp node counts (8
+# warps), node offsets and the scan scratch
+FIXED_BYTES = (2 * 4 * 8192 + 2 * 4 * 512 + 2 * 4 * 2048 + 2048 + 4 * 8 * MAX_NODES
+               + 4 * (MAX_NODES + 1) + 4 * 8)
+
+
+def smem_bytes(nodes, d):
+    """The dynamic shared memory of a block whose node ranges hold at most
+    ``nodes`` nodes of ``d + 1`` columns (csrc/stats.cuh ``smem_bytes``)."""
+    return 4 * (-(-(nodes * min(d + 1, MAX_COLS)) // 4) * 4) + FIXED_BYTES
 
 
 def stats_plan(xy, d, sms):
@@ -62,7 +74,7 @@ def stats_plan(xy, d, sms):
     owns ``nodes`` consecutive nodes (the last one fewer), about two blocks
     per SM of a card with ``sms`` SMs; ``cols`` columns of the ``d + 1``
     per pass. csrc/stats.cu sizes its shared memory from ``nodes`` and
-    ``cols``."""
+    ``cols`` (:func:`smem_bytes`)."""
     nodes = min(MAX_NODES, max(1, -(-xy // (2 * sms))))
     return nodes, -(-xy // nodes), min(d + 1, MAX_COLS)
 
