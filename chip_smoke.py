@@ -118,8 +118,10 @@ The line before the last is the kernels' JSON record; the last line is
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -193,6 +195,14 @@ def bound(op_seconds, nbytes):
     bytes' time at the memory rate."""
     t_bytes = nbytes / HBM_BYTES
     return max(op_seconds, t_bytes) * 1e3, ("operations" if op_seconds >= t_bytes else "bytes")
+
+
+def _build_root(pkg):
+    """The ``build/`` directory beside the package (ignored by git), for
+    this run's temporary files."""
+    root = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(pkg.__file__))), "build")
+    os.makedirs(root, exist_ok=True)
+    return root
 
 
 def require(cond, msg):
@@ -2315,6 +2325,277 @@ def phase_fused_epoch(torch, card):
         bound(2.0 * n * xy * k / BF16_FLOPS, nbytes)
 
 
+# the streamed flagship: 2^22 + 12288 rows, so an epoch is four full
+# superbatches of default_superbatch_rows(64) = 2^20 rows and a ragged fifth
+# of 12288 (a multiple of the 16384-row chunk's 1024-row alignment)
+STREAM_N = (1 << 22) + 12288
+# the manhattan streamed run: 2^16 rows in superbatches of 2^14, one epoch
+L1_STREAM_N, L1_STREAM_ROWS = 1 << 16, 1 << 14
+
+
+def _flagship_rows(n, d):
+    """``RandomState(0).rand(n, d)`` as float32, drawn 2^20 rows at a time
+    (the same stream as one draw, without its float64 copy of the whole)."""
+    rs = np.random.RandomState(0)
+    out = np.empty((n, d), np.float32)
+    for s in range(0, n, 1 << 20):
+        out[s:s + (1 << 20)] = rs.rand(min(1 << 20, n - s), d)
+    return out
+
+
+def _busy_share(torch, prof, wall_s):
+    """Device busy share of a profiled window: the union of the device
+    intervals of every event (kernels and copies), of the kernels alone and
+    of the copies alone, each over the window's host wall time."""
+    def union(iv):
+        busy, cur_s, cur_e = 0, None, None
+        for s, e in sorted(iv):
+            if cur_e is None or s > cur_e:
+                busy += 0 if cur_e is None else cur_e - cur_s
+                cur_s, cur_e = s, e
+            else:
+                cur_e = max(cur_e, e)
+        return busy + (0 if cur_e is None else cur_e - cur_s)
+
+    dev = [e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    copies = [(e.time_range.start, e.time_range.end) for e in dev if e.name.startswith("Memcpy")]
+    kernels = [(e.time_range.start, e.time_range.end) for e in dev
+               if not e.name.startswith(("Memcpy", "Memset"))]
+    wall_us = wall_s * 1e6
+    return {"busy": union(copies + kernels) / wall_us, "kernels": union(kernels) / wall_us,
+            "copies": union(copies) / wall_us, "events": len(dev)}
+
+
+def _read_rate(src, rows, path, cold):
+    """MB/s of one pass of ``src.superbatches(rows)`` (disk or page cache to
+    host arrays); ``cold`` first drops the file's pages from the page cache
+    (``posix_fadvise(DONTNEED)``, the file was synced when written)."""
+    if cold:
+        fd = os.open(path, os.O_RDONLY)
+        try:
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+    t0 = time.perf_counter()
+    nbytes = sum(block.nbytes for block in src.superbatches(rows))
+    took = time.perf_counter() - t0
+    require(nbytes == os.path.getsize(path), f"the loader read {nbytes} bytes of the file")
+    return nbytes / took / 1e6, took
+
+
+def phase_streaming(torch, card, workdir):
+    """The flagship trained and scored out of core: ``XPySom(128, 128, 64)``
+    on STREAM_N rows read from a file through ``FileSource`` (the native
+    loader), two epochs streamed against two resident, bitwise; streamed
+    ``predict``/``activation_response`` bitwise and QE/TE within the
+    summation-order tolerance of the resident ones; the loader's read rate,
+    the epoch times and the device busy share of a streamed epoch; then a
+    short streamed manhattan run (K5) bitwise against its resident run.
+    Returns the launch counts of the streamed path."""
+    from xpysom_dask_tpu_torch import XPySom, core
+    from xpysom_dask_tpu_torch.ops import kernels
+    from xpysom_dask_tpu_torch.parallel import (ArraySource, FileSource, default_superbatch_rows,
+                                                device_superbatches)
+    from torch.profiler import ProfilerActivity, profile
+
+    f = FLAGSHIP
+    kw = dict(sigma=64, sigmaN=1, learning_rate=0.5, learning_rateN=0.01, random_seed=0)
+    rows = default_superbatch_rows(f["d"])
+    require(rows == 1 << 20, f"default superbatch {rows} rows, not 2^20")
+    t0 = time.perf_counter()
+    data = _flagship_rows(STREAM_N, f["d"])
+    path = os.path.join(workdir, "stream.f32")
+    t1 = time.perf_counter()
+    with open(path, "wb") as fh:
+        data.tofile(fh)
+        fh.flush()
+        os.fsync(fh.fileno())
+    t2 = time.perf_counter()
+    print(f"streaming: {STREAM_N} x {f['d']} rows drawn in {t1 - t0:.3f} s, written and synced "
+          f"({data.nbytes / 1e6:.1f} MB) in {t2 - t1:.3f} s = {data.nbytes / (t2 - t1) / 1e6:.1f} MB/s")
+    src = FileSource(path, STREAM_N, f["d"])
+    require(src._lib is not None, "the native chunk loader did not build (g++) or load")
+    cold, cold_s = _read_rate(src, rows, path, cold=True)
+    warm, warm_s = _read_rate(src, rows, path, cold=False)
+    print(f"loader (FileSource, native, {src.n_buffers} buffers, superbatches of {rows} rows) "
+          f"disk to host: {cold:.1f} MB/s after dropping the file's pages ({cold_s:.3f} s), "
+          f"{warm:.1f} MB/s from the page cache ({warm_s:.3f} s) ({card})")
+    # the feed alone: the loader, the pinned buffers' fill and the uploads
+    # on the copy stream, no kernel
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fed = sum(n for _, _, n in device_superbatches(src, rows, f["chunk"], torch.device("cuda")))
+    torch.cuda.synchronize()
+    feed_s = time.perf_counter() - t0
+    require(fed == STREAM_N, f"the feed delivered {fed} rows")
+    print(f"feed alone (loader, pinned buffers, copy stream; no kernel): {feed_s * 1e3:.3f} ms "
+          f"for {STREAM_N} rows = {data.nbytes / feed_s / 1e6:.1f} MB/s ({card})")
+
+    kernels.reset_launch_counts()
+    streamed = XPySom(f["x"], f["y"], f["d"], **kw)
+    stream_s = []
+    for e in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        streamed.train(src, 2, iter_beg=e, iter_end=e + 1)
+        torch.cuda.synchronize()
+        stream_s.append(time.perf_counter() - t0)
+    scored = {}
+    for name in ("predict", "quantization_error", "topographic_error", "activation_response"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scored[name] = getattr(streamed, name)(src)
+        scored[name + "_s"] = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    print(f"streaming path launch counts: {counts}")
+
+    resident = XPySom(f["x"], f["y"], f["d"], **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resident.train(data, 2)
+    torch.cuda.synchronize()
+    resident_call_s = time.perf_counter() - t0
+    ws, wr = streamed.get_weights(), resident.get_weights()
+    require(ws.shape == wr.shape and np.isfinite(ws).all(), "streamed codebook malformed")
+    require(np.array_equal(ws.view(np.int32), wr.view(np.int32)),
+            f"streamed training differs from resident training in bits: "
+            f"max|dw| {np.abs(ws - wr).max()}")
+    print(f"streaming: 2 streamed epochs bitwise equal to 2 resident epochs over {STREAM_N} rows")
+    n_chunks = -(-STREAM_N // f["chunk"])
+    for name, need in (("bmu_argmin", 5 * n_chunks), ("scatter_stats", 2 * n_chunks),
+                       ("bmu_top2", n_chunks)):
+        require(counts[name] >= need, f"streaming: {name} launched {counts[name]} < {need} times")
+
+    res = {}
+    for name in ("predict", "quantization_error", "topographic_error", "activation_response"):
+        t0 = time.perf_counter()
+        res[name] = getattr(resident, name)(data)
+        res[name + "_s"] = time.perf_counter() - t0
+    require(np.array_equal(scored["predict"], res["predict"]), "streamed predict differs")
+    require(np.array_equal(scored["activation_response"], res["activation_response"]),
+            "streamed activation_response differs")
+    require(scored["activation_response"].sum() == STREAM_N, "activation_response lost rows")
+    # the resident sums fold n_chunks f32 chunk partials; the streamed ones
+    # fold fewer per superbatch and the superbatches in float64: the two
+    # differ by at most the f32 recursive-sum bound (n_chunks - 1) * 2^-24
+    tol = (n_chunks - 1) * F32_U
+    for name in ("quantization_error", "topographic_error"):
+        a, b = scored[name], res[name]
+        require(np.isfinite(a) and abs(a - b) <= tol * abs(b),
+                f"streamed {name} {a!r} differs from resident {b!r} beyond {tol:.3g} relative")
+    print(f"streaming scoring: predict and activation_response bitwise equal to resident; "
+          f"QE {scored['quantization_error']!r} vs {res['quantization_error']!r}, "
+          f"TE {scored['topographic_error']!r} vs {res['topographic_error']!r} "
+          f"(tolerance {tol:.3g} relative)")
+    print("streaming scoring times (host clock, s): " + ", ".join(
+        f"{k} streamed {scored[k + '_s']:.3f} resident {res[k + '_s']:.3f}"
+        for k in ("predict", "quantization_error", "topographic_error", "activation_response"))
+        + f" ({card})")
+
+    # the resident epoch on device-resident chunks (no upload), beside the
+    # streamed epochs and the resident call (chunking and upload included)
+    chunks, mask, _ = resident._chunked(data)
+    step = core.make_epoch_step(resident._spec, 2)
+    w = resident._device_weights()
+    step(w, chunks, mask, 1)
+    dev_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(w, chunks, mask, 1)
+        torch.cuda.synchronize()
+        dev_s.append(time.perf_counter() - t0)
+    del chunks, mask
+    print(f"streaming epochs over {STREAM_N} rows (host clock, synchronized): streamed "
+          f"{[round(t * 1e3, 3) for t in stream_s]} ms = "
+          f"{STREAM_N / min(stream_s) / 1e6:.3f} M samples/s at best; resident on device-resident "
+          f"chunks {[round(t * 1e3, 3) for t in dev_s]} ms (median "
+          f"{sorted(dev_s)[1] * 1e3:.3f}); resident train(data, 2) call {resident_call_s:.3f} s "
+          f"(chunking and upload included) ({card})")
+
+    probe = XPySom.from_numpy(ws, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        probe.train(src, 3, iter_beg=2, iter_end=3)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    share = _busy_share(torch, prof, wall)
+    require(share["events"] > 0, "torch.profiler saw no device event in the streamed epoch")
+    print(f"streamed epoch under torch.profiler: {wall * 1e3:.3f} ms; device busy "
+          f"{share['busy']:.4f} of it (kernels {share['kernels']:.4f}, host-to-device copies "
+          f"{share['copies']:.4f}; {share['events']} device events) ({card})")
+
+    # manhattan: K5 streamed, superbatches of one chunk
+    l1 = dict(kw, activation_distance="manhattan")
+    part = data[:L1_STREAM_N]
+    del data
+    kernels.reset_launch_counts()
+    s1 = XPySom(f["x"], f["y"], f["d"], **l1)
+    require(s1._n_parallel == L1_STREAM_ROWS, f"manhattan chunk {s1._n_parallel}")
+    s1._superbatch_rows = lambda: L1_STREAM_ROWS
+    s1.train(ArraySource(part), 1)
+    c1 = kernels.launch_counts()
+    r1 = XPySom(f["x"], f["y"], f["d"], **l1).train(part, 1)
+    require(c1["bmu_manhattan"] >= L1_STREAM_N // L1_STREAM_ROWS, "streamed manhattan: K5 not "
+            f"launched ({c1['bmu_manhattan']})")
+    require(np.array_equal(s1.get_weights().view(np.int32), r1.get_weights().view(np.int32)),
+            "streamed manhattan epoch differs from the resident one in bits")
+    print(f"streamed manhattan: 1 epoch over {L1_STREAM_N} rows in superbatches of "
+          f"{L1_STREAM_ROWS}, bitwise equal to resident; K5 launches {c1['bmu_manhattan']}")
+    os.remove(path)
+    return counts
+
+
+def phase_checkpoint_and_pickle(torch, card, data, kw, workdir):
+    """Checkpoint and resume on the card: the flagship on the main path's
+    2^19 rows, 4 epochs of a 4-epoch schedule uninterrupted, against a run
+    that writes a checkpoint every 2 epochs and stops after 2, then
+    ``load_checkpoint`` and ``train(iter_beg=_checkpoint_epoch)``: bitwise.
+    Then a card-trained model through ``pickle``: its winners on 4096 rows
+    unchanged; and ``autotune_kernel`` (K1 at the training chunk). Returns
+    the launch counts of the resume."""
+    import pickle
+
+    from xpysom_dask_tpu_torch import XPySom
+    from xpysom_dask_tpu_torch.ops import kernels
+
+    f = FLAGSHIP
+    path = os.path.join(workdir, "flagship.npz")
+    full = XPySom(f["x"], f["y"], f["d"], **kw).train(data, 4)
+    cut = XPySom(f["x"], f["y"], f["d"], **kw)
+    cut.train(data, 4, iter_end=2, checkpoint_path=path, checkpoint_every=2)
+    resumed = XPySom.load_checkpoint(path)
+    require(resumed._checkpoint_epoch == 2, f"checkpoint epoch {resumed._checkpoint_epoch}")
+    require(resumed._device.type == "cuda", f"resumed on {resumed._device}")
+    require(np.array_equal(resumed.get_weights(), cut.get_weights()), "checkpoint weights differ")
+    kernels.reset_launch_counts()
+    resumed.train(data, 4, iter_beg=resumed._checkpoint_epoch)
+    counts = kernels.launch_counts()
+    require(counts["bmu_argmin"] >= 2 * (f["n"] // f["chunk"]) and counts["scatter_stats"] >= 1,
+            f"resume: K1/K9 launches {counts}")
+    wf, wr = full.get_weights(), resumed.get_weights()
+    require(np.array_equal(wf.view(np.int32), wr.view(np.int32)),
+            f"resumed codebook differs from the uninterrupted run: max|dw| {np.abs(wf - wr).max()}")
+    print(f"checkpoint: epochs 0-1, checkpoint, load_checkpoint, epochs 2-3 bitwise equal to 4 "
+          f"uninterrupted epochs; resume launches K1 {counts['bmu_argmin']}, K9 "
+          f"{counts['scatter_stats']}")
+
+    blob = pickle.dumps(full)
+    back = pickle.loads(blob)
+    require(back._device.type == "cuda", f"unpickled on {back._device}")
+    win, win_back = full.winner(data[:4096]), back.winner(data[:4096])
+    require(win == win_back, "winners changed through pickle")
+    print(f"pickle: {len(blob)} bytes; winners on 4096 rows unchanged after the round trip")
+    res = full.autotune_kernel()
+    require(res is not None and res.tiles is None and np.isfinite(res.timings_ms[None]),
+            f"autotune_kernel returned {res}")
+    print(f"autotune_kernel: the training search at the {f['chunk']}-row chunk "
+          f"{res.timings_ms[None]:.4f} ms a call (CUDA events), first call "
+          f"{res.first_call_s[None]:.4f} s ({card})")
+    return counts
+
+
 # the search kernel (ptxas's name, as _kernel_name gives it; for the
 # elementwise engine the prefix of its instances) behind each kernel of the
 # record
@@ -2378,25 +2659,32 @@ def main(argv):
     data, kw, w3, counts = phase_main_path(torch)
     phase_te_pass(torch, smi)
     phase_determinism(torch, data, kw, w3)
-    counts_paths = phase_split3_and_hex_paths(torch, data)
-    del data
-    counts_l1 = phase_manhattan_path(torch)
-    phase_manhattan_epoch(torch, smi)
-    # each kernel's launches on the path that runs it, its counters set
-    # to 0 just before that path and read just after: the flagship path
-    # for K1/K2/K9, the split3 path for K3, the manhattan path for K5,
-    # activate under manhattan for K8; K4, K6 and K7 serve the shorter
-    # runs, whose counts are checked there
-    launches = dict(counts)
-    launches["bmu_split3"] = counts_paths["split3"]["bmu_split3"]
-    launches["bmu_manhattan"] = counts_l1["bmu_manhattan"]
-    short = phase_short_runs(torch)
-    for name in ("bmu_highest", "bmu_norm_p_odd", "bmu_norm_p_frac"):
-        launches[name] = short[name]
-    phase_margin_compact(torch, smi)
-    launches["manhattan_distance"] = phase_activate(torch, smi)["manhattan_distance"]
-    for name, phase in (("bmu_argmin_kb", phase_kblock), ("bmu_stats_fused", phase_fused_epoch)):
-        launches[name], errs[name], timings[name], bounds[name] = phase(torch, smi)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=_build_root(xpysom_dask_tpu_torch))
+    try:
+        phase_checkpoint_and_pickle(torch, smi, data, kw, workdir)
+        counts_paths = phase_split3_and_hex_paths(torch, data)
+        del data
+        counts_l1 = phase_manhattan_path(torch)
+        phase_manhattan_epoch(torch, smi)
+        # each kernel's launches on the path that runs it, its counters set
+        # to 0 just before that path and read just after: the flagship path
+        # for K1/K2/K9, the split3 path for K3, the manhattan path for K5,
+        # activate under manhattan for K8; K4, K6 and K7 serve the shorter
+        # runs, whose counts are checked there
+        launches = dict(counts)
+        launches["bmu_split3"] = counts_paths["split3"]["bmu_split3"]
+        launches["bmu_manhattan"] = counts_l1["bmu_manhattan"]
+        short = phase_short_runs(torch)
+        for name in ("bmu_highest", "bmu_norm_p_odd", "bmu_norm_p_frac"):
+            launches[name] = short[name]
+        phase_margin_compact(torch, smi)
+        launches["manhattan_distance"] = phase_activate(torch, smi)["manhattan_distance"]
+        for name, phase in (("bmu_argmin_kb", phase_kblock),
+                            ("bmu_stats_fused", phase_fused_epoch)):
+            launches[name], errs[name], timings[name], bounds[name] = phase(torch, smi)
+        phase_streaming(torch, smi, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     require("jax" not in sys.modules, "JAX was imported")
 
     record = {

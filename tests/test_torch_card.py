@@ -10,11 +10,21 @@ chunk (128 row blocks on 132 SMs, one node range per group of 256
 threads), a ragged chunk, n = 65536 (512 row blocks: the persistent search
 wraps, on a fresh ring per row block), 200 x 100 and 200 x 200 nodes (the
 latter 313 ranges of 128 nodes: some groups take two) and D = 200 (two
-column passes, 373 ranges of 44 nodes; K = 603)."""
+column passes, 373 ranges of 44 nodes; K = 603).
+
+The streaming pipeline on the card (pinned buffers and a copy stream):
+streamed training, ``predict`` and ``activation_response`` of the
+flagship map equal the resident ones bit for bit (2^18 rows and a ragged
+5000-row tail, superbatches of 2^16); and checkpoint resume equals the
+uninterrupted run bit for bit."""
 
 import numpy as np
 import pytest
 import torch
+
+from xpysom_dask_tpu_torch import XPySom
+from xpysom_dask_tpu_torch.ops import kernels
+from xpysom_dask_tpu_torch.parallel.pipeline import ArraySource
 
 from xpysom_dask_tpu_torch.ops.kernels import bmu as kb
 from xpysom_dask_tpu_torch.ops.kernels import fused_stats as kf
@@ -61,3 +71,36 @@ def test_k10_equals_k1_then_k9_bitwise(card, name):
     assert torch.equal(acc.view(torch.int32), acc9.view(torch.int32)), "K10's statistics are K9's"
     assert torch.equal(i_f2, i_f) and torch.equal(acc2.view(torch.int32), acc.view(torch.int32))
     assert float(acc[:, -1].sum()) == float(m.sum())
+
+
+KW = dict(sigma=64, sigmaN=1, learning_rate=0.5, learning_rateN=0.01, random_seed=0)
+
+
+def test_streamed_equals_resident_bitwise(card):
+    data = np.random.RandomState(1).rand((1 << 18) + 5000, 64).astype(np.float32)
+    kernels.reset_launch_counts()
+    streamed = XPySom(128, 128, 64, **KW)
+    streamed._superbatch_rows = lambda: 1 << 16
+    streamed.train(ArraySource(data), 2)
+    win = streamed.predict(ArraySource(data))
+    hits = streamed.activation_response(ArraySource(data))
+    counts = kernels.launch_counts()
+    resident = XPySom(128, 128, 64, **KW).train(data, 2)
+    assert np.array_equal(streamed.get_weights().view(np.int32),
+                          resident.get_weights().view(np.int32))
+    assert np.array_equal(win, resident.predict(data))
+    assert np.array_equal(hits, resident.activation_response(data))
+    chunks = -(-len(data) // 16384)
+    assert counts["bmu_argmin"] >= 4 * chunks and counts["scatter_stats"] >= 2 * chunks
+
+
+def test_checkpoint_resume_bitwise(card, tmp_path):
+    data = np.random.RandomState(2).rand(1 << 16, 16).astype(np.float32)
+    kw = dict(sigma=8, random_seed=3)
+    full = XPySom(32, 32, 16, **kw).train(data, 4)
+    cut = XPySom(32, 32, 16, **kw)
+    cut.train(data, 4, iter_end=2, checkpoint_path=tmp_path / "ck", checkpoint_every=2)
+    resumed = XPySom.load_checkpoint(tmp_path / "ck")
+    assert resumed._checkpoint_epoch == 2 and resumed._device.type == "cuda"
+    resumed.train(data, 4, iter_beg=resumed._checkpoint_epoch)
+    assert np.array_equal(resumed.get_weights().view(np.int32), full.get_weights().view(np.int32))

@@ -229,34 +229,48 @@ def test_unported_options_raise(kwargs):
         XPySom(4, 4, 3, device="cpu", **dict(kwargs, use_dask=True))
 
 
-def test_unported_methods_and_inputs_raise():
+def test_unported_methods_and_inputs_raise(tmp_path, capsys):
+    """What ROADMAP Queue 1 items 7 and 9 ported now runs (checkpoints,
+    ``verbose``, ``get_neig_functions``, ``autotune_kernel``, a streamed
+    source); data parallel (item 8) still raises naming its item."""
+    from xpysom_dask_tpu_torch.parallel.pipeline import ArraySource
+
     som = XPySom(4, 4, 3, device="cpu")
-    data = np.zeros((5, 3), np.float32)
+    data = np.random.RandomState(0).rand(5, 3).astype(np.float32)
     with pytest.raises(ValueError, match="not recognized"):
         XPySom(4, 4, 3, device="cpu", bmu_precision="fast")
-    for call in (
-        lambda: som.get_neig_functions(),
-        lambda: som.autotune_kernel(),
-        lambda: som.save_checkpoint("unused.npz"),
-        lambda: som.train(data, 2, verbose=True),
-        lambda: som.train(data, 2, checkpoint_path="unused.npz", checkpoint_every=1),
-        lambda: som.predict(type("Src", (), {"superbatches": None})()),
-    ):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-            call()
+    assert set(som.get_neig_functions()) == {"gaussian", "mexican_hat", "bubble", "triangle"}
+    with pytest.warns(UserWarning, match="nothing to tune"):
+        assert som.autotune_kernel() is None
+    som.save_checkpoint(tmp_path / "ck.npz")
+    assert XPySom.load_checkpoint(tmp_path / "ck.npz", device="cpu")._checkpoint_epoch == 0
+    som.train(data, 2, verbose=True)
+    assert "quantization error" in capsys.readouterr().out
+    som.train(data, 2, checkpoint_path=tmp_path / "ck.npz", checkpoint_every=1)
+    assert XPySom.load_checkpoint(tmp_path / "ck.npz", device="cpu")._checkpoint_epoch == 2
+    np.testing.assert_array_equal(som.predict(ArraySource(data)), som.predict(data))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+        XPySom(4, 4, 3, device="cpu", use_dask=True)
 
 
-def test_port_never_imports_jax():
+def test_port_never_imports_jax(tmp_path):
     code = (
         "import sys, numpy as np, xpysom_dask_tpu_torch, xpysom_dask_tpu_torch.core, "
-        "xpysom_dask_tpu_torch.ops.kernels.build; "
+        "xpysom_dask_tpu_torch.ops.kernels.build, xpysom_dask_tpu_torch.parallel, "
+        "xpysom_dask_tpu_torch.utils.serialization, xpysom_dask_tpu_torch.utils.native, "
+        "xpysom_dask_tpu_torch.utils.profiling, xpysom_dask_tpu_torch.utils.progress; "
+        "from xpysom_dask_tpu_torch.parallel import ArraySource; "
         "d = np.random.RandomState(0).rand(64, 3).astype(np.float32); "
         "[xpysom_dask_tpu_torch.XPySom(3, 3, 3, device='cpu', activation_distance=a, "
         "activation_distance_kwargs=k).train(d, 1).quantization_error(d) for a, k in "
         "(('manhattan', {}), ('cosine', {}), ('norm_p', {'p': 1.5}), ('norm_p', {'p': 4}))]; "
+        "s = xpysom_dask_tpu_torch.XPySom(3, 3, 3, device='cpu').train(ArraySource(d), 1); "
+        "s.get_neig_functions(); s.save_checkpoint(sys.argv[1]); "
+        "xpysom_dask_tpu_torch.XPySom.load_checkpoint(sys.argv[1], device='cpu'); "
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)"
     )
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True)
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path / "ck.npz")],
+                          capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
 
 

@@ -126,8 +126,11 @@ def test_scoring_surface_matches_jax(topology):
     assert ours.labels_map(data, labels) == ref.labels_map(data, labels)
     with pytest.raises(ValueError, match="same length"):
         ours.labels_map(data, labels[:5])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        ours.activation_response(type("Src", (), {"superbatches": None})())
+    # a streamed source (ROADMAP Queue 1 item 9, ported): the same counts
+    from xpysom_dask_tpu_torch.parallel.pipeline import ArraySource
+
+    np.testing.assert_array_equal(ours.activation_response(ArraySource(data)),
+                                  ref.activation_response(data))
 
 
 @pytest.mark.parametrize("topology,x,y", [("rectangular", 6, 4), ("hexagonal", 6, 6),

@@ -45,6 +45,8 @@ __all__ = [
     "SomSpec",
     "grid_coordinates",
     "chunk_data",
+    "make_stats_fn",
+    "make_update_fn",
     "make_epoch_step",
     "make_train_fn",
     "make_bmu_fn",
@@ -266,21 +268,21 @@ def _bmu_chunk(spec: SomSpec, search, x):
     return idx
 
 
-def _accumulate_stats(spec: SomSpec, w_flat, data, mask):
-    """Per-BMU sufficient statistics ``(S, cnt)`` over all chunks.
+def _accumulate_stats(spec: SomSpec, search, data, mask, acc=None):
+    """The running per-BMU statistics ``acc = [S | cnt]`` (an (XY, D+1)
+    f32 tensor; zeros when None) plus those of every chunk, chunk by chunk
+    as ``acc + partial``.
 
     Each chunk scatters into a *fresh* partial that is then added to the
     running total: scattering +1.0 rows straight into a large f32 total
     drops increments once a node's count passes 2^24."""
-    d_dim = data.shape[-1]
-    search = _searcher(spec, spec.distance_fn(), w_flat)
     scatter = kstats.scatter_stats if spec.use_kernels else kstats.scatter_stats_plain
-    acc = torch.zeros((spec.xy, d_dim + 1), dtype=_F32, device=w_flat.device)
+    if acc is None:
+        acc = torch.zeros((spec.xy, data.shape[-1] + 1), dtype=_F32, device=data.device)
     for c in range(data.shape[0]):
         x, m = data[c], mask[c]
-        bmu = _bmu_chunk(spec, search, x)
-        acc = acc + scatter(x, m, bmu, spec.xy)
-    return acc[:, :d_dim], acc[:, d_dim]
+        acc = acc + scatter(x, m, _bmu_chunk(spec, search, x), spec.xy)
+    return acc
 
 
 def _neighborhood_op(spec: SomSpec, sigma):
@@ -308,36 +310,72 @@ def _update_from_stats(spec: SomSpec, w_flat, s, cnt, eta, sigma):
 
 def _decays(spec: SomSpec, t, num_epochs: int, device):
     decay = DECAY_REGISTRY[spec.decay]
-    t = torch.tensor(t, dtype=torch.int32, device=device)
+    # a fill kernel, not torch.tensor's copy from pageable host memory: that
+    # copy waits for the stream, which after an epoch's statistics would
+    # idle the card while the host builds the update
+    t = torch.full((), int(t), dtype=torch.int32, device=device)
     eta = decay(spec.learning_rate, spec.learning_rateN, t, num_epochs)
     sig = decay(spec.sigma, spec.sigmaN, t, num_epochs)
     return eta, sig
 
 
-def make_epoch_step(spec: SomSpec, num_epochs: int):
-    """``step(w, data, mask, t) -> w'`` for one epoch; ``w`` is the
-    (X, Y, D) f32 codebook, ``data``/``mask`` the (C, chunk, D)/(C, chunk)
-    chunks, ``t`` the epoch index of a ``num_epochs`` schedule."""
-    spec.distance_fn()  # validates the activation name
+def make_stats_fn(spec: SomSpec):
+    """``stats(w, data, mask, acc=None) -> acc``: the first half of an
+    epoch. Adds the per-BMU statistics of the (C, chunk, D)/(C, chunk)
+    chunks under the (X, Y, D) codebook ``w`` to the running ``acc =
+    [S | cnt]`` ((XY, D+1) f32; None starts from zeros) and returns it.
+    Carrying ``acc`` across calls adds the chunks' partials in one order
+    and association whatever calls they arrive in, so an epoch streamed in
+    superbatches of whole chunks equals the resident epoch bit for bit."""
+    dist = spec.distance_fn()
 
-    def step(w, data, mask, t):
+    def run(w, data, mask, acc=None):
+        search = _searcher(spec, dist, w.reshape(spec.xy, spec.input_len))
+        return _accumulate_stats(spec, search, data, mask, acc)
+
+    return run
+
+
+def make_update_fn(spec: SomSpec, num_epochs: int):
+    """``update(w, acc, t) -> w'``: the second half of an epoch, the
+    decays of epoch ``t`` of a ``num_epochs`` schedule, the neighborhood
+    operator and the merge, from the statistics ``acc = [S | cnt]``."""
+
+    def run(w, acc, t):
         w_flat = w.reshape(spec.xy, spec.input_len)
         eta, sig = _decays(spec, t, num_epochs, w.device)
-        s, cnt = _accumulate_stats(spec, w_flat, data, mask)
+        s, cnt = acc[:, : spec.input_len], acc[:, spec.input_len]
         return _update_from_stats(spec, w_flat, s, cnt, eta, sig).reshape(w.shape)
+
+    return run
+
+
+def make_epoch_step(spec: SomSpec, num_epochs: int):
+    """``step(w, data, mask, t) -> w'`` for one epoch: ``make_stats_fn``
+    then ``make_update_fn``. ``w`` is the (X, Y, D) f32 codebook,
+    ``data``/``mask`` the (C, chunk, D)/(C, chunk) chunks, ``t`` the epoch
+    index of a ``num_epochs`` schedule."""
+    stats = make_stats_fn(spec)
+    update = make_update_fn(spec, num_epochs)
+
+    def step(w, data, mask, t):
+        return update(w, stats(w, data, mask), t)
 
     return step
 
 
 def make_train_fn(spec: SomSpec, num_epochs: int):
-    """``train(w, data, mask, iter_beg, iter_end) -> w'``: epochs
-    ``[iter_beg, iter_end)`` of a ``num_epochs`` schedule, the decays
-    computed from each epoch index."""
+    """``train(w, data, mask, iter_beg, iter_end, progress=None) -> w'``:
+    epochs ``[iter_beg, iter_end)`` of a ``num_epochs`` schedule, the
+    decays computed from each epoch index; ``progress(t)`` is called after
+    each epoch ``t``."""
     step = make_epoch_step(spec, num_epochs)
 
-    def run(w, data, mask, iter_beg, iter_end):
+    def run(w, data, mask, iter_beg, iter_end, progress=None):
         for t in range(int(iter_beg), int(iter_end)):
             w = step(w, data, mask, t)
+            if progress is not None:
+                progress(t)
         return w
 
     return run

@@ -14,14 +14,23 @@ and hexagonal grids, in every precision mode (``'packed'``, ``'bf16'``,
 ``'split2'``, ``'split3'``, ``'highest'``, ``'margin'``), and the analysis
 methods (``activate``, ``distance_from_weights``, ``quantization``,
 ``distance_map``, ``activation_response``, ``win_map``, ``labels_map``,
-the coordinate helpers). The methods and options still to be ported
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+the coordinate helpers), checkpoints (``save_checkpoint``,
+``load_checkpoint``, ``train(checkpoint_path=, checkpoint_every=)``) in
+the JAX package's ``.npz`` format, pickling, ``verbose`` progress,
+``get_neig_functions`` and ``autotune_kernel``. Source-like data (a
+``parallel.pipeline`` DataSource or an ``np.memmap``) streams through the
+card in superbatches in ``train``, ``predict``, ``quantization_error``,
+``topographic_error`` and ``activation_response``. ``use_dask=True``
+(data-parallel training) still raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import Counter, defaultdict
+from typing import NamedTuple, Optional
 from warnings import warn
 
 import numpy as np
@@ -31,9 +40,17 @@ from .. import core
 from ..core import SomSpec, chunk_data
 from ..ops.decays import DECAY_REGISTRY
 from ..ops.distances import DistanceFunction, euclidean_distance, manhattan_distance_no_opt
-from ..utils.hw import default_n_parallel, training_chunk
+from ..parallel.pipeline import (
+    ArraySource,
+    default_superbatch_rows,
+    device_superbatches,
+    train_streaming,
+)
+from ..utils import serialization
+from ..utils.hw import default_n_parallel, resolve_device, training_chunk
+from ..utils.progress import ProgressReporter
 
-__all__ = ["XPySom"]
+__all__ = ["XPySom", "TuneResult"]
 
 _RECT_NEIGS = ("gaussian", "mexican_hat", "bubble", "triangle")
 _HEX_NEIGS = ("gaussian", "mexican_hat", "bubble")
@@ -56,16 +73,14 @@ def _as_numpy_2d(data) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(data), dtype=np.float32)
 
 
-def _default_device() -> torch.device:
-    """The card: a model without ``device=`` runs on CUDA, and a machine
-    without a usable card is an error, never a quiet fall back to the
-    CPU."""
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA card is available (torch.cuda.is_available() is false); "
-            "pass device='cpu' to run on the CPU"
-        )
-    return torch.device("cuda")
+class TuneResult(NamedTuple):
+    """``autotune_kernel``'s result, with the JAX package's fields. The
+    port's kernels take no tiles: ``tiles`` is None and the timings hold
+    the one fixed configuration, under the key None."""
+
+    tiles: Optional[tuple]
+    timings_ms: dict
+    first_call_s: dict
 
 
 class XPySom:
@@ -191,6 +206,9 @@ class XPySom:
         )
         self._bmu_precision = cfg.bmu_precision
         self._use_kernels = cfg.use_kernels
+        # written into checkpoints only when explicit, as the JAX package
+        # writes use_pallas: the loading host's env switch then applies
+        self._use_kernels_explicit = use_kernels is not None
         if self._bmu_precision == "split2" and input_len < 32:
             # split2's self-consistent ‖w_h‖² makes nodes whose bf16
             # shadows coincide tie exactly, and the first-index tie-break
@@ -203,7 +221,11 @@ class XPySom:
                 "outruns 'packed' at wide D — prefer 'packed' here."
             )
 
-        self._device = torch.device(device) if device is not None else _default_device()
+        # the device as the caller gave it (None: the card) and as resolved
+        # here; a pickle keeps the first and resolves it again on the
+        # loading host, at first use
+        self._device_arg = device
+        self._resolved_device = resolve_device(device)
         # The kernels' chunk default (16384) is only safe where the search
         # never builds the (chunk, XY) distance matrix: ask the dispatch
         # gate, as the JAX model does
@@ -227,6 +249,22 @@ class XPySom:
         som = cls(*weights.shape, **kwargs)
         som._weights = weights.copy()
         return som
+
+    @property
+    def _device(self) -> torch.device:
+        """Where this model computes: ``device=`` as given to the
+        constructor, None meaning the card (``RuntimeError`` without
+        one)."""
+        if self._resolved_device is None:
+            self._resolved_device = resolve_device(self._device_arg)
+        return self._resolved_device
+
+    def __getstate__(self):
+        """Pickle support: drop the resolved device, keep the one the
+        caller gave (the JAX package drops its device handles likewise)."""
+        state = self.__dict__.copy()
+        state["_resolved_device"] = None
+        return state
 
     @property
     def _spec(self) -> SomSpec:
@@ -290,10 +328,41 @@ class XPySom:
             msg = "Received %d features, expected %d." % (data_len, self._input_len)
             raise ValueError(msg)
 
+    # -- streaming (out-of-core) helpers ------------------------------------------
+
     @staticmethod
-    def _reject_source(data):
-        if hasattr(data, "superbatches") or isinstance(data, np.memmap):
-            _not_ported("streaming (out-of-core) sources", 9)
+    def _as_source(data):
+        """DataSource for source-like inputs (anything with
+        ``superbatches`` or an ``np.memmap``), else None."""
+        if hasattr(data, "superbatches"):
+            return data
+        if isinstance(data, np.memmap):
+            return ArraySource(data)
+        return None
+
+    def _superbatch_rows(self) -> int:
+        """~256 MB device-resident blocks — the pipeline's shared rule."""
+        return default_superbatch_rows(self._input_len)
+
+    def _stream(self, src, chunk=None):
+        """The superbatches of ``src`` on the device as ``(chunks, mask,
+        n)``, through the pipeline's feed (pinned buffers and a copy stream
+        on the card). ``chunk`` overrides the budget ``n_parallel``."""
+        rows = self._superbatch_rows()
+        chunk = training_chunk(rows, chunk or self._n_parallel)
+        for chunks, mask, n in device_superbatches(src, rows, chunk, self._device):
+            self._check_input_len(chunks)
+            yield chunks, mask, n
+
+    def _stream_winners(self, src) -> np.ndarray:
+        """Flat winners of every row of ``src``, the codebook uploaded
+        once."""
+        bmu_fn = core.make_bmu_fn(self._spec)
+        w = self._device_weights()
+        out = [bmu_fn(w, chunks).reshape(-1)[:n] for chunks, _, n in self._stream(src)]
+        if not out:
+            return np.empty(0, dtype=np.int64)
+        return torch.cat(out).cpu().numpy().astype(np.int64)
 
     # -- winner ---------------------------------------------------------------
 
@@ -318,8 +387,11 @@ class XPySom:
         return [(int(a), int(b)) for a, b in zip(wx, wy)]
 
     def predict(self, data):
-        """Flat (raveled) winner index per sample."""
-        self._reject_source(data)
+        """Flat (raveled) winner index per sample. Source-like data streams
+        through the card in superbatches."""
+        src = self._as_source(data)
+        if src is not None:
+            return self._stream_winners(src)
         return self._winner_flat(np.atleast_2d(_as_numpy_2d(data))).astype(np.int64)
 
     # -- training ---------------------------------------------------------------
@@ -336,20 +408,81 @@ class XPySom:
     ):
         """Trains the SOM: epochs ``[iter_beg, iter_end)`` of a
         ``num_epochs``-epoch schedule (decays computed against the total,
-        so segmented training composes)."""
-        self._reject_source(data)
-        if verbose:
-            _not_ported("verbose progress", 7)
-        if checkpoint_path is not None or checkpoint_every:
-            _not_ported("checkpoints", 7)
+        so segmented training composes).
+
+        Source-like data (a DataSource or an ``np.memmap``) streams
+        through the card in superbatches (``parallel.pipeline``); with
+        superbatches of whole chunks the result equals resident training
+        bit for bit.
+
+        ``checkpoint_path`` + ``checkpoint_every=k`` write a portable .npz
+        checkpoint every k epochs and at the end: after a failure,
+        ``XPySom.load_checkpoint(path)`` and ``train(data, num_epochs,
+        iter_beg=ckpt._checkpoint_epoch)`` resume bit for bit.
+        ``verbose=True`` prints a progress bar and, at the end, the
+        quantization error (of the first superbatch for streamed data)."""
+        if checkpoint_every < 0:
+            raise ValueError(f"checkpoint_every={checkpoint_every} must be >= 0")
         if iter_end is None:
             iter_end = num_epochs
-        data2d = _as_numpy_2d(data)
-        self._check_input_len(data2d)
-        chunks, mask, _ = self._chunked(data2d)
-        train_fn = core.make_train_fn(self._spec, num_epochs)
-        w = train_fn(self._device_weights(), chunks, mask, iter_beg, iter_end)
-        self._weights = w.cpu().numpy()
+        src = self._as_source(data)
+        if src is not None:
+            n = len(src)
+            w = np.asarray(self._weights, dtype=np.float32)
+
+            def run(w, beg, end, progress):
+                return train_streaming(
+                    self._spec, w, src, num_epochs, iter_beg=beg, iter_end=end,
+                    chunk=self._n_parallel, superbatch_rows=self._superbatch_rows(),
+                    device=self._device, progress=progress,
+                )
+
+            def to_host(w):
+                return w
+        else:
+            data2d = _as_numpy_2d(data)
+            self._check_input_len(data2d)
+            chunks, mask, n = self._chunked(data2d)
+            train_fn = core.make_train_fn(self._spec, num_epochs)
+            w = self._device_weights()
+
+            def run(w, beg, end, progress):
+                return train_fn(w, chunks, mask, beg, end, progress)
+
+            def to_host(w):
+                return w.cpu().numpy()
+
+        progress = None
+        if verbose:
+            reporter = ProgressReporter(num_epochs * n)
+            reporter.start()
+
+            def progress(t):
+                reporter.update(t * n + n - 1)
+
+        checkpoints = bool(checkpoint_every and checkpoint_path)
+        seg = checkpoint_every if checkpoints else iter_end - iter_beg
+        for seg_beg in range(iter_beg, iter_end, max(seg, 1)):
+            seg_end = min(seg_beg + seg, iter_end)
+            w = run(w, seg_beg, seg_end, progress)
+            if checkpoints:
+                self._weights = to_host(w)
+                self.save_checkpoint(checkpoint_path, epoch=seg_end)
+        self._weights = to_host(w)
+
+        if verbose:
+            if src is None:
+                print("\n quantization error:", self.quantization_error(data2d))
+            else:
+                # full-source QE would stream everything again: the first
+                # superbatch is a bounded, deterministic sample; an empty or
+                # exhausted one-shot source skips the print
+                try:
+                    sample = next(iter(src.superbatches(min(n, 65536))))
+                except (StopIteration, ValueError):
+                    sample = None
+                if sample is not None and len(sample):
+                    print("\n quantization error:", self.quantization_error(sample))
         return self
 
     def train_batch(self, data, num_iteration, verbose=False):
@@ -366,9 +499,30 @@ class XPySom:
 
     # -- metrics ----------------------------------------------------------------
 
+    @staticmethod
+    def _mean_of(parts, what):
+        """``Σ totals / Σ counts`` over per-superbatch ``(total, count)``
+        device scalars, folded on the host in superbatch order (one
+        synchronization at the end); NaN with a warning for no rows."""
+        tot = n = 0.0
+        for t, c in parts:
+            tot += float(t)
+            n += float(c)
+        if n == 0:
+            warn(f"{what}: source yielded no rows.")
+            return float("nan")
+        return tot / n
+
     def quantization_error(self, data):
-        """Mean distance between samples and their BMU code vectors."""
-        self._reject_source(data)
+        """Mean distance between samples and their BMU code vectors.
+        Source-like data streams in superbatches, folding (Σ errors,
+        Σ count) on the host."""
+        src = self._as_source(data)
+        if src is not None:
+            fn = core.make_quantization_stats_fn(self._spec)
+            w = self._device_weights()
+            return self._mean_of([fn(w, c, m) for c, m, _ in self._stream(src)],
+                                 "quantization_error")
         data2d = np.atleast_2d(_as_numpy_2d(data))
         self._check_input_len(data2d)
         if data2d.shape[0] == 0:
@@ -380,21 +534,32 @@ class XPySom:
         )
         return float(tot) / float(n)
 
+    @property
+    def _te_chunk(self):
+        """TE's chunk budget: K2 keeps the distance matrix on chip and
+        takes training's chunk; its plain version builds the matrix."""
+        k2 = self._use_kernels and self._device.type == "cuda"
+        return None if k2 else self._matrix_chunk
+
     def topographic_error(self, data):
         """Fraction of samples whose two best-matching units are not
-        adjacent."""
+        adjacent. Source-like data streams in superbatches like
+        ``quantization_error``."""
         if self._x * self._y == 1:
             warn("The topographic error is not defined for a 1-by-1 map.")
             return np.nan
-        self._reject_source(data)
+        src = self._as_source(data)
+        if src is not None:
+            fn = core.make_topographic_stats_fn(self._spec)
+            w = self._device_weights()
+            return self._mean_of([fn(w, c, m) for c, m, _ in self._stream(src, self._te_chunk)],
+                                 "topographic_error")
         data2d = np.atleast_2d(_as_numpy_2d(data))
         self._check_input_len(data2d)
         if data2d.shape[0] == 0:
             warn("topographic_error: received no rows.")
             return float("nan")
-        # K2 keeps the distance matrix on chip; its plain version builds it
-        k2 = self._use_kernels and self._device.type == "cuda"
-        chunks, mask, _ = self._chunked(data2d, None if k2 else self._matrix_chunk)
+        chunks, mask, _ = self._chunked(data2d, self._te_chunk)
         errs, n = core.make_topographic_stats_fn(self._spec)(
             self._device_weights(), chunks, mask
         )
@@ -521,10 +686,14 @@ class XPySom:
         return um / um.max()
 
     def activation_response(self, data):
-        """Counts how many times each neuron wins."""
-        self._reject_source(data)
+        """Counts how many times each neuron wins. Source-like data streams
+        in superbatches."""
         a = np.zeros((self._x, self._y))
-        flat = self._winner_flat(np.atleast_2d(_as_numpy_2d(data)))
+        src = self._as_source(data)
+        if src is not None:
+            flat = self._stream_winners(src)
+        else:
+            flat = self._winner_flat(np.atleast_2d(_as_numpy_2d(data)))
         np.add.at(a, (flat // self._y, flat % self._y), 1)
         return a
 
@@ -548,27 +717,98 @@ class XPySom:
             winmap[position] = Counter(winmap[position])
         return winmap
 
-    # -- not ported yet -----------------------------------------------------------
+    # -- introspection, tuning, serialization ---------------------------------
 
     def get_neig_functions(self):
-        _not_ported("get_neig_functions", 7)
+        """Dictionary of (name, prepared neighborhood callable ``f(c, σ)``)
+        for this map's topology, ``c`` the (cx, cy) integer coordinate
+        arrays of N centers; each returns an (N, X, Y) float32 tensor on
+        the model's device. Hexagonal maps omit 'triangle', as the
+        reference does."""
+        from ..ops import neighborhoods as nb
 
-    def autotune_kernel(self, apply=True, n_samples=None, **kwargs):
-        _not_ported("autotune_kernel", 7)
+        neigx = torch.arange(self._x, dtype=torch.float32, device=self._device)
+        neigy = torch.arange(self._y, dtype=torch.float32, device=self._device)
+        std, cs = self._std_coeff, self.compact_support
+        if self.topology == "rectangular":
+            return {
+                "gaussian": nb.prepare_neig_func(nb.gaussian_rect, neigx, neigy, std, cs),
+                "mexican_hat": nb.prepare_neig_func(nb.mexican_hat_rect, neigx, neigy, std, cs),
+                "bubble": nb.prepare_neig_func(nb.bubble, neigx, neigy),
+                "triangle": nb.prepare_neig_func(nb.triangle, neigx, neigy, cs),
+            }
+        xx = torch.as_tensor(self._xx, dtype=torch.float32, device=self._device)
+        yy = torch.as_tensor(self._yy, dtype=torch.float32, device=self._device)
+        return {
+            "gaussian": nb.prepare_neig_func(nb.gaussian_generic, xx, yy, std, cs),
+            "mexican_hat": nb.prepare_neig_func(nb.mexican_hat_generic, xx, yy, std, cs),
+            "bubble": nb.prepare_neig_func(nb.bubble, neigx, neigy),
+        }
+
+    def autotune_kernel(self, apply=True, n_samples=None, reps=10, **kwargs):
+        """Time the BMU search that training routes to
+        (``core._kernel_bmu_kind``) on the card, at the chunk training uses
+        (``utils.hw.training_chunk``; pass ``n_samples=len(data)`` when the
+        dataset is smaller than ``n_parallel``), on uniform samples from a
+        fixed seed against this model's codebook. The port's kernels take
+        no tiles, so there is nothing to choose and ``apply`` sets nothing;
+        the JAX package's tile-search options (``candidates=``, ``inner=``,
+        ``mode=``) are accepted and ignored. Returns a :class:`TuneResult`
+        with ``tiles=None`` and the fixed configuration's mean time over
+        ``reps`` calls (CUDA events) and first-call time (host clock,
+        synchronized), or None with a warning where this SOM runs no
+        kernel (on the CPU, with ``use_kernels=False``, or under an
+        activation without one)."""
+        spec = self._spec
+        dist = spec.distance_fn()
+        if self._device.type != "cuda" or core._kernel_bmu_kind(dist, self._use_kernels) is None:
+            warn(
+                "autotune_kernel: this SOM runs no BMU kernel here (CPU device, "
+                "use_kernels=False, or an activation without a kernel) — nothing "
+                "to tune; returning None"
+            )
+            return None
+        chunk = training_chunk(
+            int(n_samples) if n_samples is not None else self._n_parallel, self._n_parallel
+        )
+        gen = torch.Generator(device=self._device).manual_seed(0)
+        x = torch.rand((chunk, self._input_len), generator=gen, device=self._device)
+        w_flat = self._device_weights().reshape(spec.xy, self._input_len)
+        torch.cuda.synchronize(self._device)
+        t0 = time.perf_counter()
+        search = core._searcher(spec, dist, w_flat)
+        search.argmin(x, True)
+        torch.cuda.synchronize(self._device)
+        first = time.perf_counter() - t0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            search.argmin(x, True)
+        end.record()
+        torch.cuda.synchronize(self._device)
+        return TuneResult(tiles=None, timings_ms={None: start.elapsed_time(end) / reps},
+                          first_call_s={None: first})
 
     def save_checkpoint(self, path, *, epoch=None):
-        _not_ported("save_checkpoint", 7)
+        """Portable .npz checkpoint (codebook + RNG + config header) in the
+        JAX package's format; see ``utils.serialization``. Pair with
+        ``train(..., iter_beg=epoch)`` to resume."""
+        serialization.save_checkpoint(self, path, epoch=epoch)
 
     @classmethod
-    def load_checkpoint(cls, path, **kwargs):
-        _not_ported("load_checkpoint", 7)
+    def load_checkpoint(cls, path, *, device=None):
+        """A model from a checkpoint of either package, on ``device``
+        (default: the card)."""
+        return serialization.load_checkpoint(path, device=device)
 
     def __repr__(self):
+        device = self._resolved_device or self._device_arg or "cuda"
         return (
             f"XPySom({self._x}x{self._y}, input_len={self._input_len}, "
             f"topology={self.topology!r}, "
             f"neighborhood={self.neighborhood_func_name!r}, "
             f"distance={self._activation_distance_name!r}, "
             f"bmu_precision={self._bmu_precision!r}, "
-            f"device={str(self._device)!r})"
+            f"device={str(device)!r})"
         )

@@ -1,7 +1,17 @@
-"""Neighborhood operator for the sufficient-statistics update.
+"""Neighborhood kernels: the batched per-center parity form and the
+operator form of the sufficient-statistics update.
 
-Counterpart of the operator form in ``xpysom_dask_tpu/ops/neighborhoods.py``
-(``neighborhood_operator`` and ``apply_operator``). For a rectangular grid
+Counterpart of ``xpysom_dask_tpu/ops/neighborhoods.py``. The parity form
+(``gaussian_rect``, ``gaussian_generic``, ``mexican_hat_rect``,
+``mexican_hat_generic``, ``bubble``, ``triangle`` and
+``prepare_neig_func``) gives ``f(..., c, sigma) -> (N, X, Y)`` for integer
+BMU coordinates ``c = (cx, cy)``, as the reference's functions do; it is
+what ``XPySom.get_neig_functions`` returns, and training does not use it.
+The mexican hat's ``compact_support`` masks each axis in its own box, the
+JAX package's documented repair of the reference (PARITY.md).
+
+The operator form (``neighborhood_operator`` and ``apply_operator``)
+drives training. For a rectangular grid
 every kernel factors as ``H = Σ_k Axᵏ ⊗ Ayᵏ`` with small ``(X, X)`` and
 ``(Y, Y)`` factors, so the update is four small matmuls per term instead
 of a pass over a materialized ``(N, X, Y)`` tensor.
@@ -19,7 +29,17 @@ import torch
 
 from .distances import fp32_matmul
 
-__all__ = ["neighborhood_operator", "apply_operator"]
+__all__ = [
+    "prepare_neig_func",
+    "gaussian_rect",
+    "gaussian_generic",
+    "mexican_hat_rect",
+    "mexican_hat_generic",
+    "bubble",
+    "triangle",
+    "neighborhood_operator",
+    "apply_operator",
+]
 
 _F32 = torch.float32
 
@@ -27,6 +47,104 @@ _F32 = torch.float32
 def _box_mask(n, c, sigma):
     """Strict open box ``c - σ < n < c + σ`` as float32."""
     return ((n > c - sigma) & (n < c + sigma)).to(_F32)
+
+
+def prepare_neig_func(func, *first_args):
+    """Partial application helper (reference neighborhoods.py:9-12)."""
+
+    def _inner(*args, **kwargs):
+        return func(*first_args, *args, **kwargs)
+
+    return _inner
+
+
+def _centers(grid, c):
+    """The (N, 1) float32 center coordinates ``c`` on ``grid``'s device."""
+    return torch.as_tensor(c, device=grid.device).to(_F32)[:, None]
+
+
+def _generic_centers(xx, yy, c):
+    """Euclidean center coordinates ``xx.T[c]``, ``yy.T[c]`` as (N, 1, 1)
+    float32 (the meshes have shape (Y, X))."""
+    i = torch.as_tensor(c[0], device=xx.device).long()
+    j = torch.as_tensor(c[1], device=xx.device).long()
+    return xx.T[i, j][:, None, None].to(_F32), yy.T[i, j][:, None, None].to(_F32)
+
+
+def gaussian_rect(neigx, neigy, std_coeff, compact_support, c, sigma):
+    """Gaussian centered at ``c`` on a rectangular grid: separable outer
+    product of 1-D gaussians (reference neighborhoods.py:14-33)."""
+    d = 2.0 * std_coeff**2 * sigma**2
+    nx, ny = neigx[None, :].to(_F32), neigy[None, :].to(_F32)
+    cx, cy = _centers(neigx, c[0]), _centers(neigy, c[1])
+    ax = torch.exp(-torch.square(nx - cx) / d)
+    ay = torch.exp(-torch.square(ny - cy) / d)
+    if compact_support:
+        ax = ax * _box_mask(nx, cx, sigma)
+        ay = ay * _box_mask(ny, cy, sigma)
+    return ax[:, :, None] * ay[:, None, :]
+
+
+def gaussian_generic(xx, yy, std_coeff, compact_support, c, sigma):
+    """Gaussian centered at ``c`` on any topology via euclidean grid
+    coordinates (reference neighborhoods.py:35-55). ``xx``/``yy`` have
+    shape ``(Y, X)``; centers gather from the transpose."""
+    d = 2.0 * std_coeff**2 * sigma**2
+    nx, ny = xx[None, :, :].to(_F32), yy[None, :, :].to(_F32)
+    cx, cy = _generic_centers(xx, yy, c)
+    ax = torch.exp(-torch.square(nx - cx) / d)
+    ay = torch.exp(-torch.square(ny - cy) / d)
+    if compact_support:
+        ax = ax * _box_mask(nx, cx, sigma)
+        ay = ay * _box_mask(ny, cy, sigma)
+    return (ax * ay).permute(0, 2, 1)
+
+
+def mexican_hat_rect(neigx, neigy, std_coeff, compact_support, c, sigma):
+    """Mexican hat on a rectangular grid (reference neighborhoods.py:57-74)."""
+    d = 2.0 * std_coeff**2 * sigma**2
+    nx, ny = neigx[None, :].to(_F32), neigy[None, :].to(_F32)
+    cx, cy = _centers(neigx, c[0]), _centers(neigy, c[1])
+    px = torch.square(nx - cx)
+    py = torch.square(ny - cy)
+    if compact_support:
+        px = px * _box_mask(nx, cx, sigma)
+        py = py * _box_mask(ny, cy, sigma)
+    p = px[:, :, None] + py[:, None, :]
+    return torch.exp(-p / d) * (1.0 - 2.0 / d * p)
+
+
+def mexican_hat_generic(xx, yy, std_coeff, compact_support, c, sigma):
+    """Mexican hat on any topology (reference neighborhoods.py:76-97)."""
+    d = 2.0 * std_coeff**2 * sigma**2
+    nx, ny = xx[None, :, :].to(_F32), yy[None, :, :].to(_F32)
+    cx, cy = _generic_centers(xx, yy, c)
+    px = torch.square(nx - cx)
+    py = torch.square(ny - cy)
+    if compact_support:
+        px = px * _box_mask(nx, cx, sigma)
+        py = py * _box_mask(ny, cy, sigma)
+    p = px + py
+    return (torch.exp(-p / d) * (1.0 - 2.0 / d * p)).permute(0, 2, 1)
+
+
+def bubble(neigx, neigy, c, sigma):
+    """Constant (boolean box) neighborhood (reference neighborhoods.py:99-112)."""
+    nx, ny = neigx[None, :].to(_F32), neigy[None, :].to(_F32)
+    cx, cy = _centers(neigx, c[0]), _centers(neigy, c[1])
+    return _box_mask(nx, cx, sigma)[:, :, None] * _box_mask(ny, cy, sigma)[:, None, :]
+
+
+def triangle(neigx, neigy, compact_support, c, sigma):
+    """Triangular neighborhood (reference neighborhoods.py:114-130)."""
+    nx, ny = neigx[None, :].to(_F32), neigy[None, :].to(_F32)
+    cx, cy = _centers(neigx, c[0]), _centers(neigy, c[1])
+    tx = torch.clamp(sigma - torch.abs(cx - nx), min=0.0)
+    ty = torch.clamp(sigma - torch.abs(cy - ny), min=0.0)
+    if compact_support:
+        tx = tx * _box_mask(nx, cx, sigma)
+        ty = ty * _box_mask(ny, cy, sigma)
+    return tx[:, :, None] * ty[:, None, :]
 
 
 def _axis_factors_gaussian(n1d, std_coeff, compact_support, sigma):

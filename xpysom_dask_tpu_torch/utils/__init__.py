@@ -1,5 +1,6 @@
 from .envflags import env_flag, env_tristate
-from .hw import default_n_parallel, inference_chunk, training_chunk
+from .hw import default_n_parallel, inference_chunk, resolve_device, training_chunk
+from .progress import ProgressReporter
 
 __all__ = [
     "env_flag",
@@ -7,4 +8,6 @@ __all__ = [
     "default_n_parallel",
     "inference_chunk",
     "training_chunk",
+    "resolve_device",
+    "ProgressReporter",
 ]

@@ -7,7 +7,10 @@ caller (``'cuda'`` or ``'cpu'``) instead of being asked of JAX.
 
 from __future__ import annotations
 
+import torch
+
 __all__ = [
+    "resolve_device",
     "default_n_parallel",
     "round_up",
     "training_chunk",
@@ -26,6 +29,20 @@ _CPU_BUDGET = 1 << 20
 # Fused-kernel chunk on CUDA: the flagship chunk that bench.py drives.
 # Not measured on the H100 — a neutral default until a port bench tunes it.
 _CUDA_FUSED_CHUNK = 16384
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; None means the card. A machine
+    without a usable card is an error for None, never a quiet fall back to
+    the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card is available (torch.cuda.is_available() is false); "
+            "pass device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda")
 
 
 def round_up(value: int, multiple: int) -> int:
