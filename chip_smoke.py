@@ -104,7 +104,16 @@ Phases (each prints lines; any failure raises and exits non-zero):
      column passes), timed per chunk
      against K1 + K9 as an epoch runs them, K10's kernel alone against
      K1's (CUDA events) beside K9's device time, torch.profiler's device
-     times by kernel, and per epoch.
+     times by kernel, and per epoch;
+ 15. checkpoint resume and pickle on the card, and ``autotune_kernel``;
+ 16. the flagship trained and scored out of core from a file through
+     ``FileSource``, bitwise against resident;
+ 17. ``SomPopulation`` (``phase_population``): two sweeps, 16 maps of
+     24 x 24 x 16 on 2^17 rows and 4 of the flagship's maps on its 2^19
+     rows, in every strategy, resident and streamed, against lone
+     training, the plain versions and each other, with exact K1/K9
+     launch counts, epoch times and whether they bear out streamed
+     ``'auto'`` running ``'fused'``.
 Each kernel's record carries its launches on the path that runs it, its
 error against the plain version, its time, the plain version's, the time
 of one PyTorch library call that computes the same function where there
@@ -2596,6 +2605,324 @@ def phase_checkpoint_and_pickle(torch, card, data, kw, workdir):
     return counts
 
 
+# The population phase's two sweeps, neither cut: the JAX package's own
+# population measurement (tools/r5_population_fused.py:64-70: P = 16 maps of
+# 24 x 24 x 16 on 2^17 rows of RandomState(0).rand, sigma=2.0,
+# random_seed=1; 9,216 stacked nodes) and four of the flagship's maps on
+# its 2^19 rows (member 0 is the flagship run itself; 65,536 stacked
+# nodes). ``rows``: the streamed superbatch, a multiple of every chunk.
+POP_SWEEPS = (
+    dict(name="sweep", p=16, x=24, y=24, d=16, n=1 << 17, rows=1 << 15,
+         kw=dict(sigma=2.0, random_seed=1)),
+    dict(name="flagship sweep", p=4, x=128, y=128, d=64, n=1 << 19, rows=1 << 17,
+         kw=dict(sigma=[64, 48, 32, 16], sigmaN=1, learning_rate=0.5, learning_rateN=0.01,
+                 random_seed=0)),
+)
+
+
+def _member_kw(cfg, i):
+    """The lone ``XPySom`` knobs of member ``i`` of a sweep."""
+    kw = dict(cfg["kw"])
+    kw["random_seed"] = kw["random_seed"] + i
+    kw["sigma"] = kw["sigma"][i] if isinstance(kw["sigma"], list) else kw["sigma"]
+    return kw
+
+
+def _pop_winners(pop, w, data):
+    """(P, N) winners of every member of the stacked (P, X, Y, D) host
+    codebooks ``w`` by the concatenated fp32 search of strategy
+    'batched', over the population's chunks."""
+    import torch
+
+    from xpysom_dask_tpu_torch.models import population as pm
+
+    dist = pop._members_list[0]._spec.distance_fn()
+    chunks, _, n = pop.member(0)._chunked(data, pop._n_parallel)
+    w_big = torch.from_numpy(np.ascontiguousarray(w.reshape(-1, w.shape[-1]))).to(chunks.device)
+    w_sq = torch.sum(w_big * w_big, dim=1, keepdim=True)
+    out = [pm._block_argmin(dist.flat, chunks[c], w_big, w_sq, w.shape[0])
+           for c in range(chunks.shape[0])]
+    return torch.cat(out, dim=1)[:, :n].cpu().numpy()
+
+
+def _search_flips(name, data, w_flat, got, want):
+    """Rows where two searches of ``data`` against the (XY, D) codebook
+    ``w_flat`` chose different winners, each held to the two searches'
+    stated error floors: the packed split's 2^-17 * sum_d |xc_d||2 wc_d| on
+    operands centered on the codebook mean, plus an f32 dot product's
+    D * 2^-24 * (sum_d |x_d||2 w_d| + |w|^2). Prints the flips with their
+    float64 margins; returns how many lie outside."""
+    rows = np.nonzero(got != want)[0]
+    if not len(rows):
+        return 0
+    x = data[rows].astype(np.float64)
+    w64 = w_flat.astype(np.float64)
+    center = w_flat.mean(0, dtype=np.float32).astype(np.float64)
+    wa, wb = w64[got[rows]], w64[want[rows]]
+    gap = np.abs(((x - wa) ** 2).sum(1) - ((x - wb) ** 2).sum(1))
+
+    def band(wc):
+        packed = NEAR_TIE * (np.abs(x - center) * np.abs(2 * (wc - center))).sum(1)
+        f32 = x.shape[1] * F32_U * ((np.abs(x) * np.abs(2 * wc)).sum(1) + (wc * wc).sum(1))
+        return packed + f32
+
+    floor = np.maximum(band(wa), band(wb))
+    bad = int((gap > floor).sum())
+    worst = float((gap / floor).max())
+    print(f"{name}: {len(rows)} winner flips of {len(data)} rows; float64 margins "
+          f"{np.array2string(gap[:8], precision=3)}{' ...' if len(rows) > 8 else ''}, "
+          f"largest margin / floor {worst:.3g}; {bad} outside the floors")
+    return bad
+
+
+def _held_epoch(name, got, want, flips):
+    """An epoch ``got`` against ``want`` (the same start) within the epochs
+    tolerance, or, where it is not, every winner flip of that epoch's
+    searches within the searches' error floors (``flips()`` returns the
+    count outside)."""
+    dw = float(np.abs(got - want).max())
+    if np.allclose(got, want, rtol=EPOCH_RTOL, atol=EPOCH_ATOL):
+        print(f"{name}: max|dw| {dw:.3g} within rtol {EPOCH_RTOL}, atol {EPOCH_ATOL}")
+        return
+    print(f"{name}: max|dw| {dw:.3g} beyond rtol {EPOCH_RTOL}, atol {EPOCH_ATOL}; the flips:")
+    require(flips() == 0, f"{name}: a winner flip lies outside the searches' error floors")
+
+
+def _pop_epoch_ms(torch, step, w, chunks, mask):
+    """Epochs 3-5 of a 10-epoch schedule of ``step`` (after one unmeasured)
+    on device-resident chunks, each between CUDA events; milliseconds."""
+    w = step(w, chunks, mask, 2)
+    times = []
+    for t in range(3, 6):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        w = step(w, chunks, mask, t)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def _pop_stream_ms(torch, pop, src, strategy):
+    """Streamed epochs 3-5 of a 10-epoch schedule (``train(src)`` one epoch
+    a call, after one unmeasured), each between CUDA events; the call's
+    codebook upload and write-back included; milliseconds."""
+    pop.train(src, 10, iter_beg=2, iter_end=3, strategy=strategy)
+    times = []
+    for t in range(3, 6):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        pop.train(src, 10, iter_beg=t, iter_end=t + 1, strategy=strategy)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def _population_sweep(torch, card, cfg, workdir):
+    """One sweep of the population phase (``phase_population``). Returns
+    the streamed fused and batched epoch medians (ms)."""
+    from xpysom_dask_tpu_torch import SomPopulation, XPySom
+    from xpysom_dask_tpu_torch.models import population as pm
+    from xpysom_dask_tpu_torch.ops import kernels
+    from xpysom_dask_tpu_torch.parallel import ArraySource
+
+    name, p, dims = cfg["name"], cfg["p"], (cfg["x"], cfg["y"], cfg["d"])
+    xy = cfg["x"] * cfg["y"]
+    data = _flagship_rows(cfg["n"], cfg["d"])
+
+    def make():
+        pop = SomPopulation(p, *dims, **cfg["kw"])
+        pop._superbatch_rows = lambda: cfg["rows"]
+        return pop
+
+    pop0 = make()
+    w0 = pop0.weights
+    chunk_m = _pop_chunk(pop0, "serial", cfg["n"])
+    chunk_b = _pop_chunk(pop0, "batched", cfg["n"])
+    require(cfg["rows"] % chunk_m == 0 and cfg["rows"] % chunk_b == 0,
+            f"{name}: superbatch {cfg['rows']} not a multiple of the chunks {chunk_m}, {chunk_b}")
+    n_m, n_b = -(-cfg["n"] // chunk_m), -(-cfg["n"] // chunk_b)
+    print(f"population {name}: P = {p} maps of {dims[0]} x {dims[1]} x {dims[2]} "
+          f"({p * xy} stacked nodes) on {cfg['n']} rows; serial/fused chunk {chunk_m} "
+          f"({n_m} a pass), batched chunk {chunk_b} ({n_b} a pass)")
+
+    def run(strategy, src=None, epochs=(0, 2)):
+        pop = make()
+        kernels.reset_launch_counts()
+        pop.train(data if src is None else src, 2, iter_beg=epochs[0], iter_end=epochs[1],
+                  strategy=strategy)
+        counts = kernels.launch_counts()
+        w = pop.weights
+        require(w.shape == (p, *dims) and np.isfinite(w).all(), f"{name}: {strategy} malformed")
+        return pop, w, counts
+
+    def expect(strategy, counts, epochs):
+        k1 = 0 if strategy == "batched" else n_m * p * epochs
+        k9 = (n_b if strategy == "batched" else n_m) * p * epochs
+        got = (counts["bmu_argmin"], counts["scatter_stats"])
+        require(got == (k1, k9), f"{name} {strategy}: K1/K9 launches {got}, expected {(k1, k9)}")
+        others = {k: v for k, v in counts.items() if v and k not in ("bmu_argmin", "scatter_stats")}
+        require(not others, f"{name} {strategy}: other kernels launched {others}")
+        return got
+
+    # serial, one epoch then the second, each member against lone runs
+    pop_s = make()
+    kernels.reset_launch_counts()
+    pop_s.train(data, 2, iter_end=1, strategy="serial")
+    w1 = pop_s.weights
+    pop_s.train(data, 2, iter_beg=1, strategy="serial")
+    ws = pop_s.weights
+    c_serial = expect("serial", kernels.launch_counts(), 2)
+    for i in range(p):
+        lone = XPySom(*dims, **_member_kw(cfg, i)).train(data, 2)
+        require(np.array_equal(ws[i].view(np.int32), lone.get_weights().view(np.int32)),
+                f"{name}: serial member {i} differs from its lone training in bits")
+    print(f"population {name}: serial, 2 epochs: every member bitwise equal to its lone "
+          f"XPySom training; launches K1, K9 {c_serial}")
+    for e, (start, end) in enumerate(((w0, w1), (w1, ws))):
+        for i in range(p):
+            kw = _member_kw(cfg, i)
+            plain_kw = dict(kw, use_kernels=False, n_parallel=chunk_m)
+            plain = XPySom.from_numpy(start[i], **plain_kw)
+            plain.train(data, 2, iter_beg=e, iter_end=e + 1)
+
+            def flips(i=i, kw=kw, plain_kw=plain_kw, start=start):
+                a = XPySom.from_numpy(start[i], **kw).predict(data)
+                b = XPySom.from_numpy(start[i], **plain_kw).predict(data)
+                return _search_flips(f"{name} member {i} epoch {e}: K1 vs plain", data,
+                                     start[i].reshape(xy, -1), a, b)
+
+            _held_epoch(f"{name} member {i} epoch {e}: serial vs the plain versions from the "
+                        "same codebook", end[i], plain.get_weights(), flips)
+
+    # fused: the same chunks in the same order, so serial's bits
+    pop_f, wf, counts = run("fused")
+    c_fused = expect("fused", counts, 2)
+    require(np.array_equal(wf.view(np.int32), ws.view(np.int32)),
+            f"{name}: fused differs from serial in bits")
+    print(f"population {name}: fused, 2 epochs: bitwise equal to serial; launches K1, K9 "
+          f"{c_fused}")
+
+    # batched: one epoch against serial's, then QE after two
+    _, wb1, counts = run("batched", epochs=(0, 1))
+    c_b1 = expect("batched", counts, 1)
+
+    def batched_flips():
+        got = _pop_winners(pop0, w0, data)
+        bad = 0
+        for i in range(p):
+            k1 = XPySom.from_numpy(w0[i], **_member_kw(cfg, i)).predict(data)
+            bad += _search_flips(f"{name} member {i}: batched fp32 vs K1 packed", data,
+                                 w0[i].reshape(xy, -1), got[i], k1)
+        return bad
+
+    _held_epoch(f"{name}: batched vs serial after 1 epoch", wb1, w1, batched_flips)
+    pop_b, wb, counts = run("batched")
+    c_batched = expect("batched", counts, 2)
+    qe_s, qe_b = pop_s.quantization_errors(data), pop_b.quantization_errors(data)
+    qe0 = pop0.quantization_errors(data)
+    require(np.isfinite(qe_b).all() and (qe_s < qe0).all(), f"{name}: QE did not fall")
+    require(np.allclose(qe_b, qe_s, rtol=0.05), f"{name}: batched QE {qe_b} vs serial {qe_s}")
+    print(f"population {name}: batched, 1 epoch launches K1, K9 {c_b1}; 2 epochs {c_batched}; "
+          f"QE after 2 epochs batched {qe_b.tolist()} vs serial {qe_s.tolist()} (rtol 0.05; "
+          f"initial {qe0.tolist()})")
+
+    # streamed through ArraySource, superbatches of whole chunks
+    src = ArraySource(data)
+    streamed = {}
+    for strategy, resident in (("fused", wf), ("batched", wb)):
+        pop, w, counts = run(strategy, src)
+        got = expect(strategy, counts, 2)
+        require(np.array_equal(w.view(np.int32), resident.view(np.int32)),
+                f"{name}: streamed {strategy} differs from resident in bits")
+        streamed[strategy] = w
+        print(f"population {name}: streamed {strategy} (superbatches of {cfg['rows']}), "
+              f"2 epochs: bitwise equal to resident; launches K1, K9 {got}")
+    qe_src = pop_s.quantization_errors(src)
+    tol = (n_b - 1) * F32_U
+    require(np.all(np.abs(qe_src - qe_s) <= tol * np.abs(qe_s)),
+            f"{name}: streamed QE {qe_src} vs resident {qe_s} beyond {tol:.3g} relative")
+    print(f"population {name}: streamed quantization_errors within {tol:.3g} relative of "
+          f"resident (largest {float(np.max(np.abs(qe_src - qe_s) / qe_s)):.3g})")
+    path = os.path.join(workdir, "population.npz")
+    make().train(src, 2, iter_end=1, checkpoint_path=path, checkpoint_every=1)
+    resumed = SomPopulation.load_checkpoint(path)
+    require(resumed._checkpoint_epoch == 1, f"{name}: checkpoint epoch {resumed._checkpoint_epoch}")
+    resumed._superbatch_rows = lambda: cfg["rows"]
+    resumed.train(src, 2, iter_beg=resumed._checkpoint_epoch)
+    require(np.array_equal(resumed.weights.view(np.int32), streamed["fused"].view(np.int32)),
+            f"{name}: the resumed streamed sweep differs from the uninterrupted one in bits")
+    print(f"population {name}: streamed auto (fused) 1 epoch, checkpoint, load_checkpoint, "
+          "1 epoch: bitwise equal to 2 uninterrupted epochs")
+
+    # epoch times, every member, device-resident chunks and streamed;
+    # 'serial' runs fused's epoch, so it is timed once
+    specs = pop0._specs()
+    update = pm._pop_update(specs, 10)
+    times = {}
+    for strategy, make_stats in (("fused", pm._make_pop_stats_fused),
+                                 ("batched", pm._make_pop_stats)):
+        chunks, mask, _ = pop0.member(0)._chunked(data, pop0._chunk_budget(strategy))
+        stats = make_stats(specs)
+
+        def step(w, chunks, mask, t, stats=stats):
+            return update(w, stats(w, chunks, mask), t)
+
+        times[strategy] = _pop_epoch_ms(torch, step, pop0._stacked_device_weights(), chunks, mask)
+        del chunks, mask
+    for strategy in ("fused", "batched"):
+        times["streamed " + strategy] = _pop_stream_ms(torch, make(), src, strategy)
+    med = {k: sorted(v)[1] for k, v in times.items()}
+    print(f"population {name} epoch times, all {p} members (CUDA events, ms, median of 3 after "
+          "a warm-up): " + "; ".join(
+              f"{k} {[round(t, 3) for t in v]} median {med[k]:.3f}" for k, v in times.items())
+          + f" ({card})")
+    return med["streamed fused"], med["streamed batched"]
+
+
+def _pop_chunk(pop, strategy, n):
+    """The resident chunk a population trains ``n`` rows with."""
+    from xpysom_dask_tpu_torch.utils.hw import training_chunk
+
+    return training_chunk(n, pop._chunk_budget(strategy))
+
+
+def phase_population(torch, card, workdir):
+    """``SomPopulation`` on the card at the two sweeps of ``POP_SWEEPS``:
+    K1 and K9 at the sweep's 576 nodes against their plain versions; per
+    sweep, serial (2 epochs) bitwise equal to lone ``XPySom`` training and
+    each epoch within the epochs tolerance of the plain versions from the
+    same codebook; fused bitwise equal to serial; batched within the
+    tolerance of serial after 1 epoch (or every flip a float64 near-tie
+    within the two searches' floors) and by QE after 2; streamed fused and
+    batched bitwise equal to resident, streamed QE within the f32
+    summation bound, a streamed checkpoint resume bitwise; exact K1/K9
+    launches per strategy; epoch times. Then whether the measured streamed
+    times bear out streamed ``'auto'`` running ``'fused'`` at every size."""
+    from xpysom_dask_tpu_torch.ops.kernels import bmu as kb
+    from xpysom_dask_tpu_torch.ops.kernels import stats as ks
+
+    sweep = POP_SWEEPS[0]
+    xy = sweep["x"] * sweep["y"]
+    rng = np.random.RandomState(12)
+    x = rng.rand(16384, sweep["d"]).astype(np.float32)
+    w = rng.rand(xy, sweep["d"]).astype(np.float32) * 2 - 1
+    _, _, _, idx, _ = compare_bmu(torch, kb, f"K1/K2 at the sweep's {xy} nodes", x, w)
+    compare_stats(torch, ks, f"K9 at the sweep's {xy} nodes, K1's winners", x,
+                  (rng.rand(16384) > 0.05).astype(np.float32), idx, xy)
+
+    gate = []
+    for cfg in POP_SWEEPS:
+        fused, batched = _population_sweep(torch, card, cfg, workdir)
+        nodes = cfg["p"] * cfg["x"] * cfg["y"]
+        gate.append(f"{nodes} stacked nodes: streamed fused {fused:.3f} ms, batched "
+                    f"{batched:.3f} ms")
+        require(batched * 1.2 > fused, f"streamed batched ({batched:.3f} ms) beat fused "
+                f"({fused:.3f} ms) at {nodes} stacked nodes, where streamed 'auto' runs fused")
+    print("population streaming: 'auto' runs fused; " + "; ".join(gate) + f" ({card})")
+
+
 # the search kernel (ptxas's name, as _kernel_name gives it; for the
 # elementwise engine the prefix of its instances) behind each kernel of the
 # record
@@ -2683,6 +3010,7 @@ def main(argv):
                             ("bmu_stats_fused", phase_fused_epoch)):
             launches[name], errs[name], timings[name], bounds[name] = phase(torch, smi)
         phase_streaming(torch, smi, workdir)
+        phase_population(torch, smi, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     require("jax" not in sys.modules, "JAX was imported")

@@ -16,13 +16,19 @@ The streaming pipeline on the card (pinned buffers and a copy stream):
 streamed training, ``predict`` and ``activation_response`` of the
 flagship map equal the resident ones bit for bit (2^18 rows and a ragged
 5000-row tail, superbatches of 2^16); and checkpoint resume equals the
-uninterrupted run bit for bit."""
+uninterrupted run bit for bit. Streamed ``predict`` and
+``activation_response`` keep one superbatch's winners on the card and
+two in pinned host memory: neither peak grows from N rows to 4N.
+
+``SomPopulation`` on the card: a serial sweep equals training each member
+alone bit for bit, and a streamed ``'fused'`` sweep equals the resident
+one."""
 
 import numpy as np
 import pytest
 import torch
 
-from xpysom_dask_tpu_torch import XPySom
+from xpysom_dask_tpu_torch import SomPopulation, XPySom
 from xpysom_dask_tpu_torch.ops import kernels
 from xpysom_dask_tpu_torch.parallel.pipeline import ArraySource
 
@@ -104,3 +110,56 @@ def test_checkpoint_resume_bitwise(card, tmp_path):
     assert resumed._checkpoint_epoch == 2 and resumed._device.type == "cuda"
     resumed.train(data, 4, iter_beg=resumed._checkpoint_epoch)
     assert np.array_equal(resumed.get_weights().view(np.int32), full.get_weights().view(np.int32))
+
+
+def test_streamed_scoring_memory_does_not_grow_with_rows(card):
+    """The card holds one superbatch's winners, and a call hands out two
+    superbatches' pinned staging buffers (and the feed's two) however many
+    superbatches it streams: from N to 4N rows neither the card's peak
+    nor the pinned bytes handed out grow by one superbatch's winners."""
+    rows = 1 << 15
+    som = XPySom(32, 32, 16, sigma=8, random_seed=3)
+    som._superbatch_rows = lambda: rows
+    rng = np.random.RandomState(4)
+    peaks, pinned = {}, {}
+    for n in (1 << 18, 1 << 20):
+        src = ArraySource(rng.rand(n, 16).astype(np.float32))
+        for name in ("predict", "activation_response"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            handed = torch.cuda.host_memory_stats()["active_bytes.allocated"]
+            out = getattr(som, name)(src)
+            torch.cuda.synchronize()
+            peaks[name, n] = torch.cuda.max_memory_allocated()
+            pinned[name, n] = torch.cuda.host_memory_stats()["active_bytes.allocated"] - handed
+            assert (len(out) if name == "predict" else out.sum()) == n
+    for name in ("predict", "activation_response"):
+        grew = peaks[name, 1 << 20] - peaks[name, 1 << 18]
+        assert grew < 4 * rows, f"{name}: peak card memory grew by {grew} bytes"
+        grew = pinned[name, 1 << 20] - pinned[name, 1 << 18]
+        assert grew < 4 * rows, f"{name}: pinned host bytes handed out grew by {grew} bytes"
+
+
+POP_KW = dict(sigma=[3.0, 2.0, 1.5, 1.0], learning_rate=[0.5, 0.4, 0.3, 0.6], random_seed=5)
+
+
+def test_population_serial_equals_lone_training_bitwise(card):
+    data = np.random.RandomState(6).rand(1 << 16, 16).astype(np.float32)
+    pop = SomPopulation(4, 24, 24, 16, **POP_KW).train(data, 2, strategy="serial")
+    for i in range(4):
+        lone = XPySom(24, 24, 16, sigma=POP_KW["sigma"][i],
+                      learning_rate=POP_KW["learning_rate"][i], random_seed=5 + i).train(data, 2)
+        assert np.array_equal(pop.member(i).get_weights().view(np.int32),
+                              lone.get_weights().view(np.int32))
+
+
+def test_population_streamed_fused_equals_resident_bitwise(card):
+    data = np.random.RandomState(7).rand(1 << 16, 16).astype(np.float32)
+    kernels.reset_launch_counts()
+    streamed = SomPopulation(4, 24, 24, 16, **POP_KW)
+    streamed._superbatch_rows = lambda: 1 << 14
+    streamed.train(ArraySource(data), 2, strategy="fused")
+    counts = kernels.launch_counts()
+    resident = SomPopulation(4, 24, 24, 16, **POP_KW).train(data, 2, strategy="fused")
+    assert np.array_equal(streamed.weights.view(np.int32), resident.weights.view(np.int32))
+    assert counts["bmu_argmin"] == counts["scatter_stats"] == 2 * 4 * 4

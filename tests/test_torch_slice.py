@@ -267,6 +267,11 @@ def test_port_never_imports_jax(tmp_path):
         "s = xpysom_dask_tpu_torch.XPySom(3, 3, 3, device='cpu').train(ArraySource(d), 1); "
         "s.get_neig_functions(); s.save_checkpoint(sys.argv[1]); "
         "xpysom_dask_tpu_torch.XPySom.load_checkpoint(sys.argv[1], device='cpu'); "
+        "from xpysom_dask_tpu_torch import SomPopulation; "
+        "p = SomPopulation(2, 3, 3, 3, device='cpu', sigma=[1.0, 2.0], random_seed=0); "
+        "[p.train(d, 2, strategy=st) for st in ('serial', 'fused', 'batched')]; "
+        "p.train(ArraySource(d), 1); p.best(d); p.save_checkpoint(sys.argv[1]); "
+        "SomPopulation.load_checkpoint(sys.argv[1], device='cpu').quantization_errors(d); "
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)"
     )
     proc = subprocess.run([sys.executable, "-c", code, str(tmp_path / "ck.npz")],

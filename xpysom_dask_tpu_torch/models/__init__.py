@@ -1,3 +1,4 @@
+from .population import SomPopulation
 from .som import XPySom
 
-__all__ = ["XPySom"]
+__all__ = ["XPySom", "SomPopulation"]

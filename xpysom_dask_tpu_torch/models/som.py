@@ -354,15 +354,56 @@ class XPySom:
             self._check_input_len(chunks)
             yield chunks, mask, n
 
-    def _stream_winners(self, src) -> np.ndarray:
-        """Flat winners of every row of ``src``, the codebook uploaded
-        once."""
+    def _stream_winners(self, src):
+        """Flat winners of each superbatch of ``src`` on the device, as
+        ``(winners, n)``, the codebook uploaded once. A caller keeps at
+        most one superbatch's winners on the device."""
         bmu_fn = core.make_bmu_fn(self._spec)
         w = self._device_weights()
-        out = [bmu_fn(w, chunks).reshape(-1)[:n] for chunks, _, n in self._stream(src)]
-        if not out:
-            return np.empty(0, dtype=np.int64)
-        return torch.cat(out).cpu().numpy().astype(np.int64)
+        for chunks, _, n in self._stream(src):
+            yield bmu_fn(w, chunks).reshape(-1)[:n], n
+
+    def _stream_predict(self, src) -> np.ndarray:
+        """Flat winners of every row of ``src`` on the host. On the card
+        each superbatch's winners are copied, without waiting, into one of
+        two pinned staging buffers behind an event; a buffer is drained
+        into the host output when its turn comes again (its copy, two
+        superbatches back, has long finished) and at the end. The card
+        holds one superbatch's winners and the pinned memory two, whatever
+        the row count."""
+        out, at = np.empty(len(src), dtype=np.int64), 0
+        staged = [None, None]  # per slot: (pinned winners, event of the copy, offset, rows)
+
+        def put(start, values):
+            nonlocal out
+            end = start + len(values)
+            if end > len(out):  # a source longer than its len()
+                out = np.concatenate([out, np.empty(end - len(out), dtype=np.int64)])
+            out[start:end] = values
+
+        def drain(slot):
+            pinned, done, start, n = slot
+            done.synchronize()
+            put(start, pinned[:n].numpy())
+
+        for k, (win, n) in enumerate(self._stream_winners(src)):
+            if win.device.type != "cuda":
+                put(at, win.numpy())
+            else:
+                slot = staged[k % 2]
+                if slot is not None:
+                    drain(slot)
+                pinned = slot[0] if slot is not None and slot[0].shape[0] >= n else (
+                    torch.empty(n, dtype=win.dtype, pin_memory=True))
+                pinned[:n].copy_(win, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+                staged[k % 2] = (pinned, done, at, n)
+            at += n
+        for slot in staged:
+            if slot is not None:
+                drain(slot)
+        return out[:at]
 
     # -- winner ---------------------------------------------------------------
 
@@ -391,7 +432,7 @@ class XPySom:
         through the card in superbatches."""
         src = self._as_source(data)
         if src is not None:
-            return self._stream_winners(src)
+            return self._stream_predict(src)
         return self._winner_flat(np.atleast_2d(_as_numpy_2d(data))).astype(np.int64)
 
     # -- training ---------------------------------------------------------------
@@ -691,9 +732,15 @@ class XPySom:
         a = np.zeros((self._x, self._y))
         src = self._as_source(data)
         if src is not None:
-            flat = self._stream_winners(src)
-        else:
-            flat = self._winner_flat(np.atleast_2d(_as_numpy_2d(data)))
+            # counts folded per superbatch on the device: integers, so
+            # equal to counting every winner at once
+            counts = torch.zeros(self._x * self._y, dtype=torch.int64, device=self._device)
+            for win, _ in self._stream_winners(src):
+                # index_add_, not bincount: bincount reads the winners'
+                # range on the host, a wait on the stream per superbatch
+                counts.index_add_(0, win.long(), torch.ones_like(win, dtype=torch.int64))
+            return a + counts.cpu().numpy().reshape(self._x, self._y)
+        flat = self._winner_flat(np.atleast_2d(_as_numpy_2d(data)))
         np.add.at(a, (flat // self._y, flat % self._y), 1)
         return a
 

@@ -24,7 +24,6 @@ separable sums: 3 terms and 9).
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from .distances import fp32_matmul
@@ -221,8 +220,9 @@ def _hexagonal_operator(name, neigx, neigy, std_coeff, compact_support, sigma):
     y_dim = int(neigy.shape[0])
     # off[r] = 1 where grid_coordinates' xx[::-2] shifted row r: rows
     # counted from the END, i.e. (Y − 1 − r) even
-    off = torch.from_numpy(((y_dim - 1 - np.arange(y_dim)) % 2 == 0).astype(np.float32))
-    off = off.to(neigy.device)
+    # built on the device: a copy from pageable host memory here would wait
+    # for the stream, after the statistics, once per member and epoch
+    off = ((y_dim - 1 - torch.arange(y_dim, device=neigy.device)) % 2 == 0).to(_F32)
     m_same = off[:, None] * off[None, :] + (1.0 - off[:, None]) * (1.0 - off[None, :])
     m_p = (1.0 - off[:, None]) * off[None, :]  # center class 0 → node 1
     m_m = off[:, None] * (1.0 - off[None, :])  # center class 1 → node 0

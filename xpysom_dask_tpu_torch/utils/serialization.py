@@ -12,7 +12,9 @@ checkpoint written by either package loads in the other: the header
 carries ``use_pallas`` (the port's ``use_kernels`` when it was explicit,
 else null) and ``bmu_tiles`` (always null: the port's kernels take no
 tiles); on load ``use_pallas`` maps to ``use_kernels`` and ``bmu_tiles`` is
-ignored. Population checkpoints are ROADMAP Queue 1 item 10.
+ignored. A population checkpoint (:func:`save_population_checkpoint`)
+holds the stacked (P, X, Y, D) codebooks, every member's RNG state and
+config, in the same format and with the JAX package's header.
 """
 
 from __future__ import annotations
@@ -24,7 +26,14 @@ import pickle
 import numpy as np
 import torch
 
-__all__ = ["save", "load", "save_checkpoint", "load_checkpoint"]
+__all__ = [
+    "save",
+    "load",
+    "save_checkpoint",
+    "load_checkpoint",
+    "save_population_checkpoint",
+    "load_population_checkpoint",
+]
 
 _FORMAT_VERSION = 1
 
@@ -199,3 +208,113 @@ def load_checkpoint(path, *, device=None):
         epoch = header.get("epoch")
         som._checkpoint_epoch = 0 if epoch is None else int(epoch)
     return som
+
+
+def _rng_arrays(rng_states):
+    """Stack MT19937 states into three arrays (keys/meta/gauss)."""
+    keys = np.stack([np.asarray(s[1], dtype=np.uint32) for s in rng_states])
+    meta = np.asarray([[s[2], s[3], 0] for s in rng_states], dtype=np.float64)
+    gauss = np.asarray([s[4] for s in rng_states], dtype=np.float64)
+    return keys, meta, gauss
+
+
+def save_population_checkpoint(pop, path, *, epoch=None):
+    """One portable ``.npz`` for a whole ``SomPopulation``: the stacked
+    (P, X, Y, D) codebooks, every member's RNG state and a header with each
+    member's config — the population's :func:`save_checkpoint`."""
+    if not _should_write():
+        return
+    path = _norm_path(path)
+    header = {
+        "format_version": _FORMAT_VERSION,
+        "population": {
+            "n_members": pop.n_members,
+            # 0 = auto-sized, as for a single model's n_parallel
+            "n_parallel": int(pop._n_parallel) if pop._n_parallel_explicit else 0,
+            "configs": [_config_dict(m) for m in pop.members],
+        },
+        "epoch": epoch,
+    }
+    keys, meta, gauss = _rng_arrays([m._random_generator.get_state() for m in pop.members])
+    _atomic_savez(
+        path,
+        header=np.frombuffer(json.dumps(header).encode(), dtype=np.uint8),
+        weights=np.ascontiguousarray(pop.weights),
+        rng_keys=keys,
+        rng_meta=meta,
+        rng_gauss=gauss,
+    )
+
+
+def load_population_checkpoint(path, *, device=None):
+    """Rebuild a ``SomPopulation`` from a population checkpoint of either
+    package, on ``device`` (default: the card)."""
+    from ..models.population import SomPopulation
+
+    with np.load(_norm_path(path)) as z:
+        if "header" not in z.files or "weights" not in z.files:
+            raise ValueError(
+                f"{path!r} is not an xpysom checkpoint "
+                f"(missing header/weights entries; found {z.files})"
+            )
+        header = json.loads(bytes(z["header"]).decode())
+        if header["format_version"] > _FORMAT_VERSION:
+            raise ValueError(
+                f"checkpoint format {header['format_version']} is newer than "
+                f"this library supports ({_FORMAT_VERSION})"
+            )
+        if "population" not in header:
+            raise ValueError(f"{path!r} is a single-model checkpoint — use load_checkpoint")
+        meta_hdr = header["population"]
+        cfgs = meta_hdr["configs"]
+        p = int(meta_hdr["n_members"])
+        if len(cfgs) != p:
+            raise ValueError(
+                f"corrupt population checkpoint: {len(cfgs)} member configs for n_members={p}"
+            )
+        c0 = cfgs[0]
+        pop = SomPopulation(
+            p,
+            c0["x"],
+            c0["y"],
+            c0["input_len"],
+            sigma=[c["sigma"] for c in cfgs],
+            sigmaN=[c["sigmaN"] for c in cfgs],
+            learning_rate=[c["learning_rate"] for c in cfgs],
+            learning_rateN=[c["learning_rateN"] for c in cfgs],
+            decay_function=c0["decay_function"],
+            neighborhood_function=c0["neighborhood_function"],
+            std_coeff=c0["std_coeff"],
+            topology=c0["topology"],
+            activation_distance=c0["activation_distance"],
+            activation_distance_kwargs=c0["activation_distance_kwargs"],
+            compact_support=c0["compact_support"],
+            n_parallel=meta_hdr.get("n_parallel", 0),
+            device=device,
+        )
+        w = np.asarray(z["weights"])
+        expect = (p, c0["x"], c0["y"], c0["input_len"])
+        if w.shape != expect:
+            raise ValueError(
+                f"checkpoint weights shape {w.shape} does not match its "
+                f"own config {expect} — corrupt or hand-edited file"
+            )
+        keys = np.asarray(z["rng_keys"], dtype=np.uint32)
+        meta = np.asarray(z["rng_meta"])
+        gauss = np.asarray(z["rng_gauss"])
+        for i, (m, c) in enumerate(zip(pop.members, cfgs)):
+            m._weights = w[i].copy()
+            # the kernel config as load_checkpoint restores it: the numeric
+            # mode travels (a resumed sweep searches as the earlier epochs
+            # did), use_kernels only where it was explicit
+            if c.get("bmu_precision"):
+                m._bmu_precision = c["bmu_precision"]
+            if c.get("use_pallas") is not None:
+                m._use_kernels = bool(c["use_pallas"])
+                m._use_kernels_explicit = True
+            m._random_generator.set_state(
+                ("MT19937", keys[i], int(meta[i][0]), int(meta[i][1]), float(gauss[i]))
+            )
+        epoch = header.get("epoch")
+        pop._checkpoint_epoch = 0 if epoch is None else int(epoch)
+    return pop
