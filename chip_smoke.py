@@ -6,6 +6,8 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
     python3 chip_smoke.py --te-pass-of DIR   # only the TE pass, of the package in DIR
     python3 chip_smoke.py --manhattan-epoch-of DIR   # only the manhattan epoch, likewise
+    python3 chip_smoke.py --dist-cards N     # only phase 18's ranks: N on NCCL, one a card
+    python3 chip_smoke.py --dist-worker RANK WORLD BACKEND DIR   # one rank (phase 18 starts them)
 
 The second form times ``topographic_error``'s pass (phase 6), the third
 the manhattan epoch (phase 9), with the ``xpysom_dask_tpu_torch`` found in
@@ -113,7 +115,20 @@ Phases (each prints lines; any failure raises and exits non-zero):
      rows, in every strategy, resident and streamed, against lone
      training, the plain versions and each other, with exact K1/K9
      launch counts, epoch times and whether they bear out streamed
-     ``'auto'`` running ``'fused'``.
+     ``'auto'`` running ``'fused'``;
+ 18. data parallel over ``torch.distributed`` (``phase_distributed``) at
+     the flagship's full width: (a) a world of one on NCCL, ``mesh='auto'``
+     bitwise equal to ``mesh=None`` (codebook, QE, TE, ``predict``), the
+     epoch with and without an NCCL ``all_reduce`` of ``[S | cnt]`` and
+     the ``all_reduce`` alone timed; (b) this script run again as
+     ``--dist-worker RANK 2 gloo DIR`` in two processes on the one card
+     over gloo (NCCL refuses two ranks on one card; ``--dist-cards N``
+     runs only (b), N ranks on NCCL, one a card): statistics, two epochs,
+     scoring, a checkpoint written by rank 0 and resumed by both, a
+     streamed epoch from three shard files split unevenly by
+     ``ShardedFileSource`` and a fused population epoch of 4 flagship
+     maps, each rank's codebooks bitwise equal to the other's and held
+     against one process's.
 Each kernel's record carries its launches on the path that runs it, its
 error against the plain version, its time, the plain version's, the time
 of one PyTorch library call that computes the same function where there
@@ -136,6 +151,7 @@ import time
 import numpy as np
 
 FLAGSHIP = dict(x=128, y=128, d=64, n=1 << 19, chunk=16384)
+FLAGSHIP_KW = dict(sigma=64, sigmaN=1, learning_rate=0.5, learning_rateN=0.01, random_seed=0)
 # The packed mode's stated error floor (xpysom_dask_tpu/ops/pallas/bmu.py
 # bmu_euclidean docstring): a winner may differ from the exact one only
 # where the two float64 distances are within 2^-17 * sum_d |x_d||2 w_d|.
@@ -243,7 +259,7 @@ def phase_card(torch):
     print(f"card: {smi}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} devices {torch.cuda.device_count()}")
-    return smi
+    return "; ".join(smi.splitlines())  # one line a card
 
 
 # csrc/gemm_sm90.cu's search variants, in the order of its enum Search
@@ -805,7 +821,7 @@ def phase_main_path(torch):
 
     f = FLAGSHIP
     data = np.random.RandomState(0).rand(f["n"], f["d"]).astype(np.float32)
-    kw = dict(sigma=64, sigmaN=1, learning_rate=0.5, learning_rateN=0.01, random_seed=0)
+    kw = FLAGSHIP_KW
     som = XPySom(f["x"], f["y"], f["d"], **kw)
     require(som._n_parallel == f["chunk"], f"chunk {som._n_parallel} != {f['chunk']}")
 
@@ -2923,6 +2939,304 @@ def phase_population(torch, card, workdir):
     print("population streaming: 'auto' runs fused; " + "; ".join(gate) + f" ({card})")
 
 
+# The distributed phase: the flagship at full width, its 2^19 rows also in
+# three shard files that ShardedFileSource splits unevenly over two ranks
+# (files[0::2]: 374,288 rows, files[1::2]: 150,000), and 4 flagship maps
+# as the population phase's flagship sweep. Each worker is killed at the
+# timeout, and the phase fails then.
+DIST_SHARDS = (200000, 150000, 174288)
+DIST_POP = dict(sigma=[64, 48, 32, 16], sigmaN=1, learning_rate=0.5, learning_rateN=0.01,
+                random_seed=0)
+DIST_TIMEOUT_S = 240
+
+
+def _shard_paths(root):
+    return [os.path.join(root, f"shard{i}.f32") for i in range(len(DIST_SHARDS))]
+
+
+def _timed(torch, walls, name, fn):
+    """``fn()``, its wall time (host clock, synchronized) in ``walls``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    walls[name] = time.perf_counter() - t0
+    return out
+
+
+def _expect_counts(name, counts, want):
+    """The launches of a path: exactly ``want`` (name: count), no other
+    kernel."""
+    got = {k: v for k, v in counts.items() if v}
+    require(got == want, f"{name}: launches {got}, expected {want}")
+
+
+def dist_worker(rank, world, backend, store):
+    """One rank of the distributed phase (``--dist-worker RANK WORLD
+    BACKEND DIR``): ``backend`` over the ``file://`` store in DIR, on the
+    rank's card (``cuda:{rank % cards}``); each step on the flagship, its
+    results in ``DIR/rank{RANK}.npz`` and a JSON line of its times and
+    launches."""
+    import torch
+    import torch.distributed as dist
+
+    from xpysom_dask_tpu_torch import SomPopulation, XPySom, core
+    from xpysom_dask_tpu_torch.ops import kernels
+    from xpysom_dask_tpu_torch.parallel import ShardedFileSource, initialize_multihost
+
+    f = FLAGSHIP
+    dims = (f["x"], f["y"], f["d"])
+    # no CUDA call before the join, which makes the rank's card current
+    t0 = time.perf_counter()
+    initialize_multihost(f"file://{store}/rendezvous", world, rank, backend=backend)
+    walls, out = {"join": time.perf_counter() - t0}, {}
+    require(dist.get_backend() == backend, f"backend {dist.get_backend()}")
+    data = _flagship_rows(f["n"], f["d"])
+    som = XPySom(*dims, **FLAGSHIP_KW, mesh="auto")
+    require(som._mesh.world == world and som._device.type == "cuda", f"mesh {som._mesh}")
+
+    kernels.reset_launch_counts()
+    chunks, mask, _ = som._chunked(data)
+    w0 = som._device_weights()
+    out["acc"] = _timed(torch, walls, "statistics", lambda: core.make_stats_fn(
+        som._spec, som._mesh)(w0, chunks, mask)).cpu().numpy()
+    out["w2"] = _timed(torch, walls, "train 2 epochs", lambda: som.train(data, 2)).get_weights()
+    out["predict"] = _timed(torch, walls, "predict", lambda: som.predict(data))
+    out["qe"], out["te"] = _timed(torch, walls, "QE and TE", lambda: (
+        som.quantization_error(data), som.topographic_error(data)))
+    counts = kernels.launch_counts()
+    per = chunks.shape[0]
+    _expect_counts(f"rank {rank}", counts,
+                   {"bmu_argmin": 5 * per, "scatter_stats": 3 * per, "bmu_top2": per})
+    epoch_ms = _pop_epoch_ms(torch, core.make_epoch_step(som._spec, 10, som._mesh), w0,
+                             chunks, mask)
+    buf = torch.zeros((f["x"] * f["y"], f["d"] + 1), device=som._device)
+    all_reduce_ms = cuda_ms(torch, lambda: dist.all_reduce(buf), reps=10, warmup=2)
+    del chunks, mask
+
+    path = os.path.join(store, "flagship.npz")
+    cut = _timed(torch, walls, "1 epoch and a checkpoint", lambda: XPySom(
+        *dims, **FLAGSHIP_KW, mesh="auto").train(data, 2, iter_end=1, checkpoint_path=path,
+                                                 checkpoint_every=1))
+    out["w1"] = cut.get_weights()
+    back = XPySom.load_checkpoint(path, mesh="auto")
+    require(back._checkpoint_epoch == 1, f"checkpoint epoch {back._checkpoint_epoch}")
+    require(np.array_equal(back.get_weights().view(np.int32), out["w1"].view(np.int32)),
+            f"rank {rank}: the checkpoint's codebook is not this rank's")
+    out["resumed"] = _timed(torch, walls, "load_checkpoint and 1 epoch",
+                            lambda: back.train(data, 2, iter_beg=1)).get_weights()
+    require(np.array_equal(out["resumed"].view(np.int32), out["w2"].view(np.int32)),
+            f"rank {rank}: the resumed codebook differs from the uninterrupted one in bits")
+
+    src = ShardedFileSource(_shard_paths(store), f["d"], mesh=som._mesh)
+    out["stream_rows"] = len(src)
+    out["stream_w"] = _timed(torch, walls, "streamed epoch", lambda: XPySom(
+        *dims, **FLAGSHIP_KW, mesh="auto").train(src, 2, iter_end=1)).get_weights()
+    out["pop_w"] = _timed(torch, walls, "population epoch, 4 flagship maps", lambda: SomPopulation(
+        4, *dims, **DIST_POP, mesh="auto").train(data, 2, iter_end=1, strategy="fused")).weights
+    require("jax" not in sys.modules, "JAX was imported")
+    np.savez(os.path.join(store, f"rank{rank}.npz"), **out)
+    print("dist worker " + json.dumps({"rank": rank, "walls_s": walls, "epoch_ms": epoch_ms,
+                                       "all_reduce_ms": all_reduce_ms,
+                                       "launches": {k: v for k, v in counts.items() if v}}))
+    dist.destroy_process_group()
+    return 0
+
+
+def _run_workers(store, world, backend):
+    """The ranks of the distributed phase, started together; all are
+    killed at the timeout or when one fails. Returns each rank's output."""
+    cmd = [sys.executable, os.path.abspath(__file__), "--dist-worker"]
+    procs = [subprocess.Popen(cmd + [str(r), str(world), backend, store],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+    except subprocess.TimeoutExpired:
+        raise RuntimeError(f"distributed: a rank did not finish in {DIST_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        require(p.returncode == 0, f"distributed: rank {r} exited {p.returncode}:\n{log[-4000:]}")
+    return logs
+
+
+def phase_distributed(torch, card, workdir):
+    """Data parallel over ``torch.distributed`` at the flagship's full
+    width (phase 18 of the module docstring): (a) here, (b) in
+    :func:`phase_ranks`. Every rank's codebooks are compared bit for bit
+    with the others' and, with the epochs tolerance (or every winner flip a
+    float64 near-tie inside the searches' floors), with one process's."""
+    import torch.distributed as dist
+
+    from xpysom_dask_tpu_torch import XPySom, core
+    from xpysom_dask_tpu_torch.ops import kernels
+    from xpysom_dask_tpu_torch.parallel import initialize_multihost
+
+    t_phase = time.perf_counter()
+    f = FLAGSHIP
+    dims = (f["x"], f["y"], f["d"])
+    n_chunks = f["n"] // f["chunk"]
+    data = _flagship_rows(f["n"], f["d"])
+
+    def bits(a):
+        return np.ascontiguousarray(a, dtype=np.float32).view(np.int32)
+
+    # (a) a world of one on NCCL: no collective runs, so mesh='auto' is
+    # the single-device path bit for bit
+    initialize_multihost(f"file://{workdir}/world1.store", 1, 0)
+    try:
+        require(dist.get_backend() == "nccl", f"world 1: backend {dist.get_backend()}")
+        kernels.reset_launch_counts()
+        meshed = XPySom(*dims, **FLAGSHIP_KW, mesh="auto").train(data, 2)
+        got = (meshed.quantization_error(data), meshed.topographic_error(data),
+               meshed.predict(data))
+        _expect_counts("world 1", kernels.launch_counts(), {
+            "bmu_argmin": 4 * n_chunks, "scatter_stats": 2 * n_chunks, "bmu_top2": n_chunks})
+        single = XPySom(*dims, **FLAGSHIP_KW).train(data, 2)
+        want = (single.quantization_error(data), single.topographic_error(data),
+                single.predict(data))
+        require(meshed._mesh.world == 1 and meshed._device.type == "cuda", f"{meshed!r}")
+        require(np.array_equal(bits(meshed.get_weights()), bits(single.get_weights())),
+                "world 1: the codebook differs from mesh=None in bits")
+        require(got[0] == want[0] and got[1] == want[1] and np.array_equal(got[2], want[2]),
+                f"world 1: QE/TE {got[:2]} vs {want[:2]}, or predict, differ from mesh=None")
+        print(f"distributed, world 1 on NCCL: 2 epochs, QE {got[0]!r}, TE {got[1]!r} and "
+              f"predict bitwise equal to mesh=None; launches K1 {4 * n_chunks}, K9 "
+              f"{2 * n_chunks}, K2 {n_chunks}")
+
+        spec = single._spec
+        chunks, mask, _ = single._chunked(data)
+        w0 = XPySom(*dims, **FLAGSHIP_KW)._device_weights()
+        stats, update = core.make_stats_fn(spec), core.make_update_fn(spec, 10)
+
+        def reduced(w, chunks, mask, t):
+            acc = stats(w, chunks, mask)
+            dist.all_reduce(acc)
+            return update(w, acc, t)
+
+        steps = {"mesh=None": core.make_epoch_step(spec, 10),
+                 "mesh='auto'": core.make_epoch_step(spec, 10, meshed._mesh),
+                 "+ NCCL all_reduce": reduced}
+        require(np.array_equal(bits(reduced(w0, chunks, mask, 0).cpu()),
+                               bits(steps["mesh=None"](w0, chunks, mask, 0).cpu())),
+                "world 1: an NCCL all_reduce changed the epoch's bits")
+        times = {k: [] for k in steps}
+        for order in (list(steps), list(steps)[::-1]):  # in turns
+            for k in order:
+                times[k].append(_pop_epoch_ms(torch, steps[k], w0, chunks, mask))
+        acc = stats(w0, chunks, mask)
+        ar_ms = [cuda_ms(torch, lambda: dist.all_reduce(acc), reps=20, warmup=3) for _ in range(3)]
+        print("distributed, world 1 epoch times (CUDA events, ms, median of 3 after a warm-up, "
+              "two turns): " + "; ".join(
+                  f"{k} {sorted(a)[1]:.3f} [{', '.join(f'{t:.3f}' for t in a)}], "
+                  f"{sorted(b)[1]:.3f} [{', '.join(f'{t:.3f}' for t in b)}]"
+                  for k, (a, b) in times.items())
+              + f"; NCCL all_reduce of [S | cnt] ({acc.numel() * 4} bytes) alone "
+              f"{', '.join(f'{t:.4f}' for t in ar_ms)} ms (mean of 20, three times) ({card})")
+        del chunks, mask, acc
+    finally:
+        dist.destroy_process_group()
+
+    # (b) two ranks on the one card over gloo (NCCL refuses two ranks on
+    # one card)
+    phase_ranks(torch, card, workdir, 2, "gloo")
+    print(f"distributed phase: {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
+def phase_ranks(torch, card, workdir, world, backend):
+    """``world`` ranks of ``chip_smoke.py --dist-worker`` over ``backend``
+    (phase 18 (b): 2 on gloo on the one card; ``--dist-cards N``: N on
+    NCCL, one a card), held against one process's run on the same data and
+    each other: statistics, 2 epochs, scoring, a checkpoint resume, a
+    streamed epoch from ``files[rank::world]`` of the three shard files and
+    a fused population epoch of 4 flagship maps."""
+    from xpysom_dask_tpu_torch import SomPopulation, XPySom, core
+
+    f = FLAGSHIP
+    dims, xy = (f["x"], f["y"], f["d"]), f["x"] * f["y"]
+    data = _flagship_rows(f["n"], f["d"])
+    name = f"distributed, {world} ranks on {backend}"
+    store = os.path.join(workdir, f"dist{world}")
+    os.makedirs(store)
+    ends = np.cumsum((0,) + DIST_SHARDS)
+    for path, a, b in zip(_shard_paths(store), ends[:-1], ends[1:]):
+        data[a:b].tofile(path)
+    single = XPySom(*dims, **FLAGSHIP_KW)
+    w0 = single.get_weights().astype(np.float32)
+    chunks, mask, _ = single._chunked(data)
+    ref_acc = core.make_stats_fn(single._spec)(torch.from_numpy(w0).to(chunks.device), chunks,
+                                               mask).cpu().numpy()
+    del chunks, mask
+    w1 = XPySom(*dims, **FLAGSHIP_KW).train(data, 2, iter_end=1).get_weights()
+    w2 = single.train(data, 2).get_weights()
+    pop1 = SomPopulation(4, *dims, **DIST_POP).train(data, 2, iter_end=1, strategy="fused").weights
+    t0 = time.perf_counter()
+    logs = _run_workers(store, world, backend)
+    took = time.perf_counter() - t0
+    res = []
+    for r, log in enumerate(logs):
+        line = [ln for ln in log.splitlines() if ln.startswith("dist worker ")]
+        require(line, f"{name}: rank {r} printed no result:\n{log[-4000:]}")
+        rec = json.loads(line[-1][len("dist worker "):])
+        with np.load(os.path.join(store, f"rank{r}.npz")) as z:
+            rec.update({k: z[k] for k in z.files})
+        res.append(rec)
+        print(f"{name}, rank {r}: walls (s) "
+              + ", ".join(f"{k} {v:.3f}" for k, v in rec["walls_s"].items())
+              + f"; epoch {', '.join(f'{t:.3f}' for t in rec['epoch_ms'])} ms (CUDA events); "
+              f"{backend} all_reduce of [S | cnt] alone {rec['all_reduce_ms']:.4f} ms (mean of "
+              f"10); launches {rec['launches']} ({card})")
+    r0 = res[0]
+    for k in ("acc", "w2", "w1", "resumed", "predict", "qe", "te", "stream_w", "pop_w"):
+        a = np.atleast_1d(r0[k])
+        for r, rec in enumerate(res[1:], 1):
+            b = np.atleast_1d(rec[k])
+            require(a.dtype == b.dtype and np.array_equal(a.view(np.uint8), b.view(np.uint8)),
+                    f"{name}: rank {r}'s {k} differs from rank 0's in bits")
+    acc = r0["acc"]
+    require(np.array_equal(acc[:, -1], ref_acc[:, -1]), f"{name}: cnt differs from one process's")
+    require(np.allclose(acc[:, :-1], ref_acc[:, :-1], rtol=1e-5, atol=1e-5),
+            f"{name}: S beyond rtol 1e-5, atol 1e-5 of one process's: max|dS| "
+            f"{np.abs(acc[:, :-1] - ref_acc[:, :-1]).max():.3g}")
+    require(np.allclose(r0["w1"], w1, rtol=EPOCH_RTOL, atol=EPOCH_ATOL),
+            f"{name}: epoch 0 beyond the epochs tolerance of one process's")
+
+    def flips():
+        a = XPySom.from_numpy(r0["w1"], **FLAGSHIP_KW).predict(data)
+        b = XPySom.from_numpy(w1, **FLAGSHIP_KW).predict(data)
+        return _search_flips(f"{name}, epoch 1 vs one process", data, w1.reshape(xy, -1), a, b)
+
+    _held_epoch(f"{name} vs one process, 2 epochs", r0["w2"], w2, flips)
+    same = XPySom.from_numpy(r0["w2"], **FLAGSHIP_KW)
+    require(np.array_equal(r0["predict"], same.predict(data)),
+            f"{name}: the gathered winners differ from one process's on the same codebook")
+    qe, te = same.quantization_error(data), same.topographic_error(data)
+    require(abs(float(r0["qe"]) - qe) <= 1e-6 * qe and float(r0["te"]) == te,
+            f"{name}: QE/TE {float(r0['qe'])!r}, {float(r0['te'])!r} vs one process's "
+            f"{qe!r}, {te!r} on the same codebook")
+    rows = [int(r["stream_rows"]) for r in res]
+    require(rows == [sum(DIST_SHARDS[r::world]) for r in range(world)], f"shard rows {rows}")
+    require(np.allclose(r0["stream_w"], w1, rtol=EPOCH_RTOL, atol=EPOCH_ATOL),
+            f"{name}: the streamed epoch beyond the epochs tolerance of one process's "
+            f"resident epoch: max|dw| {np.abs(r0['stream_w'] - w1).max():.3g}")
+    require(np.allclose(r0["pop_w"], pop1, rtol=EPOCH_RTOL, atol=EPOCH_ATOL),
+            f"{name}: the population epoch beyond the epochs tolerance of one process's: "
+            f"max|dw| {np.abs(r0['pop_w'] - pop1).max():.3g}")
+    print(f"{name}: every result bitwise equal across the ranks; cnt equal to one process's, "
+          f"max|dS| {np.abs(acc[:, :-1] - ref_acc[:, :-1]).max():.3g}; 2 epochs max|dw| "
+          f"{np.abs(r0['w2'] - w2).max():.3g}; checkpoint resume bitwise; predict bitwise, QE "
+          f"and TE as one process's on the same codebook; streamed epoch (rows {rows}) "
+          f"max|dw| {np.abs(r0['stream_w'] - w1).max():.3g}; population epoch max|dw| "
+          f"{np.abs(r0['pop_w'] - pop1).max():.3g}; the workers {took:.1f} s")
+
+
 # the search kernel (ptxas's name, as _kernel_name gives it; for the
 # elementwise engine the prefix of its instances) behind each kernel of the
 # record
@@ -2955,6 +3269,10 @@ def main(argv):
                       help="only time the TE pass, with the package of the checkout in DIR")
     only.add_argument("--manhattan-epoch-of", metavar="DIR",
                       help="only time the manhattan epoch, with the package of the checkout in DIR")
+    only.add_argument("--dist-cards", type=int, metavar="N",
+                      help="only the distributed ranks' phase, N ranks on NCCL, one a card")
+    ap.add_argument("--dist-worker", nargs=4, metavar=("RANK", "WORLD", "BACKEND", "DIR"),
+                    help="run one rank of the distributed phase (started by the phase itself)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -2968,7 +3286,20 @@ def main(argv):
         print(f"chip_smoke: run from the repository root ({exc})", file=sys.stderr)
         return 2
 
+    if args.dist_worker:
+        rank, world, backend, store = args.dist_worker
+        return dist_worker(int(rank), int(world), backend, store)
     smi = phase_card(torch)
+    if args.dist_cards:
+        require(torch.cuda.device_count() >= args.dist_cards,
+                f"--dist-cards {args.dist_cards}: {torch.cuda.device_count()} cards")
+        phase_build()
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=_build_root(xpysom_dask_tpu_torch))
+        try:
+            phase_ranks(torch, smi, workdir, args.dist_cards, "nccl")
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        return 0
     if other:
         root = os.path.dirname(os.path.dirname(os.path.abspath(xpysom_dask_tpu_torch.__file__)))
         require(root == os.path.abspath(other), f"the package came from {root}")
@@ -3011,6 +3342,7 @@ def main(argv):
             launches[name], errs[name], timings[name], bounds[name] = phase(torch, smi)
         phase_streaming(torch, smi, workdir)
         phase_population(torch, smi, workdir)
+        phase_distributed(torch, smi, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     require("jax" not in sys.modules, "JAX was imported")

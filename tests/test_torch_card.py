@@ -22,7 +22,11 @@ two in pinned host memory: neither peak grows from N rows to 4N.
 
 ``SomPopulation`` on the card: a serial sweep equals training each member
 alone bit for bit, and a streamed ``'fused'`` sweep equals the resident
-one."""
+one.
+
+Data parallel on the card: a world of one process on NCCL
+(``mesh='auto'``) trains two flagship epochs bit for bit as ``mesh=None``
+does, and scores alike."""
 
 import numpy as np
 import pytest
@@ -163,3 +167,25 @@ def test_population_streamed_fused_equals_resident_bitwise(card):
     resident = SomPopulation(4, 24, 24, 16, **POP_KW).train(data, 2, strategy="fused")
     assert np.array_equal(streamed.weights.view(np.int32), resident.weights.view(np.int32))
     assert counts["bmu_argmin"] == counts["scatter_stats"] == 2 * 4 * 4
+
+
+def test_world_of_one_on_nccl_is_the_single_device_path(card, tmp_path):
+    import torch.distributed as dist
+
+    from xpysom_dask_tpu_torch.parallel import initialize_multihost
+
+    data = np.random.RandomState(0).rand(1 << 19, 64).astype(np.float32)
+    kw = dict(sigma=64, sigmaN=1, learning_rate=0.5, learning_rateN=0.01, random_seed=0)
+    initialize_multihost(f"file://{tmp_path}/store", 1, 0)
+    try:
+        assert dist.get_backend() == "nccl"
+        meshed = XPySom(128, 128, 64, **kw, mesh="auto").train(data, 2)
+        assert meshed._mesh.world == 1 and meshed._device.type == "cuda"
+        single = XPySom(128, 128, 64, **kw).train(data, 2)
+        np.testing.assert_array_equal(meshed.get_weights().view(np.int32),
+                                      single.get_weights().view(np.int32))
+        np.testing.assert_array_equal(meshed.predict(data), single.predict(data))
+        assert meshed.quantization_error(data) == single.quantization_error(data)
+        assert meshed.topographic_error(data) == single.topographic_error(data)
+    finally:
+        dist.destroy_process_group()

@@ -249,21 +249,29 @@ def test_streaming_periodic_checkpoints_match_resident(tmp_path):
 
 
 def test_more_than_one_process_raises_item_8(monkeypatch, dataset):
+    """Streaming across processes is ported (item 8): in a run of two
+    processes, a model without a mesh streams on its own, with no
+    collective, as one process does; the sharded source's defaults are the
+    process group's rank and world size, or the mesh's when one is given.
+    The runs across real processes are ``tests/test_torch_distributed.py``."""
+    from xpysom_dask_tpu_torch.parallel.mesh import DataMesh
+
     f, data = dataset
     monkeypatch.setattr(torch.distributed, "is_available", lambda: True)
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_rank", lambda: 1)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    som = _som(4, 4, 6, random_seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        som.train(ArraySource(data), 1)
-    # a process group's rank and world size are the sharded source's defaults
+    streamed = _som(4, 4, 6, random_seed=0).train(ArraySource(data), 1)
+    resident = _som(4, 4, 6, random_seed=0).train(data, 1)
+    np.testing.assert_array_equal(_bits(streamed._weights), _bits(resident._weights))
     files = []
     for i in range(3):
         files.append(f.with_name(f"s{i}.f32"))
         data[i * 100 : (i + 1) * 100].tofile(files[-1])
     src = ShardedFileSource(files, 6)
     assert [str(p) for p in src.files] == [str(files[1])]
+    src = ShardedFileSource(files, 6, mesh=DataMesh(None, 0, 2, torch.device("cpu")))
+    assert [str(p) for p in src.files] == [str(files[0]), str(files[2])]
 
 
 def test_sharded_file_source_round_robin_and_parity(tmp_path):

@@ -177,9 +177,17 @@ def test_streamed_equals_resident_bitwise(strategy):
 
 
 def test_mesh_raises_naming_data_parallel():
-    """The JAX mesh tests' counterpart: data parallel is ROADMAP item 8."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        _pop(2, 4, 4, 6, mesh="auto")
+    """The JAX mesh tests' counterpart: a grid mesh raises with the JAX
+    package's message; a data mesh trains (across processes:
+    ``tests/test_torch_distributed.py``), here a world of one, bit for bit
+    the population without a mesh."""
+    with pytest.raises(ValueError, match="1-D data-parallel meshes only"):
+        _pop(2, 4, 4, 6, mesh=(1, 2))
+    data = _blobs(n=200)
+    kw = dict(sigma=[1.0, 2.0], random_seed=4)
+    meshed = _pop(2, 4, 4, 8, mesh="auto", **kw).train(data, 2)
+    plain = _pop(2, 4, 4, 8, **kw).train(data, 2)
+    np.testing.assert_array_equal(_bits(meshed.weights), _bits(plain.weights))
 
 
 def test_default_device_is_the_card_and_never_falls_back(monkeypatch):

@@ -236,6 +236,25 @@ def test_pickle_round_trip_via_save_and_load(tmp_path):
     np.testing.assert_array_equal(loaded.get_weights(), som.get_weights())
 
 
+def test_a_process_without_a_mesh_writes_its_own_checkpoint(monkeypatch, tmp_path):
+    """A model without a mesh is its process's own, so it writes its
+    checkpoints whatever rank its process holds in a process group (rank 1
+    of 2 here, the group faked); it skipped the write before, as if every
+    process held rank 0's model. Under a mesh rank 0 alone writes
+    (``tests/test_torch_distributed.py``)."""
+    monkeypatch.setattr(torch.distributed, "is_available", lambda: True)
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda *a: 1)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a: 2)
+    data = np.random.RandomState(3).rand(64, 3).astype(np.float32)
+    ckpt = tmp_path / "rank1.npz"
+    som = XPySom(4, 4, 3, random_seed=2, device="cpu")
+    som.train(data, 2, checkpoint_path=ckpt, checkpoint_every=1)
+    loaded = XPySom.load_checkpoint(ckpt, device="cpu")
+    assert loaded._checkpoint_epoch == 2
+    np.testing.assert_array_equal(_bits(loaded.get_weights()), _bits(som.get_weights()))
+
+
 def _bar(text):
     """The bar with its clock fields masked (they differ run to run)."""
     return re.sub(r"\d+:\d\d:\d\d(\.\d+)?", "T", text)

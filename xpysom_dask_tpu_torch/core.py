@@ -19,6 +19,11 @@ names and ``p <= 0`` through a plain distance matrix.
 ``SomSpec.use_kernels`` selects the CUDA kernels (True, the default) or
 their plain PyTorch versions (False) for tensors on the card; on CPU
 tensors the kernel wrappers always run the plain versions.
+
+With a data mesh (``parallel.mesh``, the builders' ``mesh=``) the chunks
+are this rank's share: the epoch's statistics are all_reduced once,
+where the JAX core ``psum``s them over the ``'data'`` axis, and QE and TE
+reduce their two sums.
 """
 
 from __future__ import annotations
@@ -319,19 +324,39 @@ def _decays(spec: SomSpec, t, num_epochs: int, device):
     return eta, sig
 
 
-def make_stats_fn(spec: SomSpec):
+def _all_reduce_sum(tensor, mesh):
+    """``parallel.mesh.all_reduce_sum`` (imported here, at the call: the
+    ``parallel`` package imports this module)."""
+    from .parallel.mesh import all_reduce_sum
+
+    return all_reduce_sum(tensor, mesh)
+
+
+def make_stats_fn(spec: SomSpec, mesh=None):
     """``stats(w, data, mask, acc=None) -> acc``: the first half of an
     epoch. Adds the per-BMU statistics of the (C, chunk, D)/(C, chunk)
     chunks under the (X, Y, D) codebook ``w`` to the running ``acc =
     [S | cnt]`` ((XY, D+1) f32; None starts from zeros) and returns it.
     Carrying ``acc`` across calls adds the chunks' partials in one order
     and association whatever calls they arrive in, so an epoch streamed in
-    superbatches of whole chunks equals the resident epoch bit for bit."""
+    superbatches of whole chunks equals the resident epoch bit for bit.
+
+    With a data mesh (``parallel.mesh``) the chunks are this rank's share
+    and the result is the sum over the ranks: this rank's total, then one
+    ``all_reduce`` of it, which gives every rank the same bits; with K9's
+    deterministic scatter (no float atomics: never ``index_add_`` here)
+    every rank then updates alike. The counts stay f32, as the JAX package
+    psums them: exact up to 2^24 rows a node over all ranks. A running
+    total is this rank's own, so ``acc`` is refused: streaming carries it
+    without the mesh and reduces once
+    (``parallel.pipeline.stats_streaming``)."""
     dist = spec.distance_fn()
 
     def run(w, data, mask, acc=None):
+        if acc is not None and mesh is not None:
+            raise ValueError("a running acc is carried without a mesh, then reduced once")
         search = _searcher(spec, dist, w.reshape(spec.xy, spec.input_len))
-        return _accumulate_stats(spec, search, data, mask, acc)
+        return _all_reduce_sum(_accumulate_stats(spec, search, data, mask, acc), mesh)
 
     return run
 
@@ -350,12 +375,14 @@ def make_update_fn(spec: SomSpec, num_epochs: int):
     return run
 
 
-def make_epoch_step(spec: SomSpec, num_epochs: int):
+def make_epoch_step(spec: SomSpec, num_epochs: int, mesh=None):
     """``step(w, data, mask, t) -> w'`` for one epoch: ``make_stats_fn``
     then ``make_update_fn``. ``w`` is the (X, Y, D) f32 codebook,
     ``data``/``mask`` the (C, chunk, D)/(C, chunk) chunks, ``t`` the epoch
-    index of a ``num_epochs`` schedule."""
-    stats = make_stats_fn(spec)
+    index of a ``num_epochs`` schedule. With a data mesh, ``data`` is this
+    rank's share and every rank updates from the same reduced
+    statistics."""
+    stats = make_stats_fn(spec, mesh)
     update = make_update_fn(spec, num_epochs)
 
     def step(w, data, mask, t):
@@ -364,12 +391,12 @@ def make_epoch_step(spec: SomSpec, num_epochs: int):
     return step
 
 
-def make_train_fn(spec: SomSpec, num_epochs: int):
+def make_train_fn(spec: SomSpec, num_epochs: int, mesh=None):
     """``train(w, data, mask, iter_beg, iter_end, progress=None) -> w'``:
     epochs ``[iter_beg, iter_end)`` of a ``num_epochs`` schedule, the
     decays computed from each epoch index; ``progress(t)`` is called after
-    each epoch ``t``."""
-    step = make_epoch_step(spec, num_epochs)
+    each epoch ``t``. ``mesh``: as ``make_epoch_step``."""
+    step = make_epoch_step(spec, num_epochs, mesh)
 
     def run(w, data, mask, iter_beg, iter_end, progress=None):
         for t in range(int(iter_beg), int(iter_end)):
@@ -381,9 +408,11 @@ def make_train_fn(spec: SomSpec, num_epochs: int):
     return run
 
 
-def make_bmu_fn(spec: SomSpec):
+def make_bmu_fn(spec: SomSpec, mesh=None):
     """``bmu(w, data) -> (C, chunk) int32`` flat grid indices, by the
-    activation distance."""
+    activation distance. Each row's winner needs no other rank, so with a
+    data mesh this returns this rank's winners; the caller gathers them
+    (``parallel.mesh.fetch_global``)."""
     dist = spec.distance_fn()
 
     def run(w, data):
@@ -393,10 +422,11 @@ def make_bmu_fn(spec: SomSpec):
     return run
 
 
-def make_quantization_stats_fn(spec: SomSpec):
+def make_quantization_stats_fn(spec: SomSpec, mesh=None):
     """``qstats(w, data, mask) -> (Σ‖x - W[bmu]‖, Σ mask)``, BMU by
     euclidean distance whatever the activation (the reference's
-    definition), searched under the spec's mode."""
+    definition), searched under the spec's mode. With a data mesh both
+    sums are over every rank's chunks (one ``all_reduce``)."""
     eucl = DistanceFunction("euclidean")
 
     def run(w, data, mask):
@@ -410,6 +440,8 @@ def make_quantization_stats_fn(spec: SomSpec):
             err = torch.linalg.vector_norm(x - w_flat[bmu.long()], dim=1)
             tot = tot + torch.sum(err * m)
             n = n + torch.sum(m)
+        if mesh is not None:
+            tot, n = _all_reduce_sum(torch.stack((tot, n)), mesh)
         return tot, n
 
     return run
@@ -424,14 +456,15 @@ def te_fused_mode(spec: SomSpec) -> str:
     return "bf16" if spec.bmu_precision == "bf16" else "packed"
 
 
-def make_topographic_stats_fn(spec: SomSpec):
+def make_topographic_stats_fn(spec: SomSpec, mesh=None):
     """``tstats(w, data, mask) -> (Σ errors, Σ mask)``: top-2 BMUs by
     euclidean distance (K2 in mode ``te_fused_mode(spec)``), an error where
     they are not adjacent: ``|Δx| > 1 or |Δy| > 1`` on the rectangular
     grid, a euclidean offset distance ``> 1.5`` on the hexagonal one. The
     hexagonal branch indexes the ``(y, x)``-shaped coordinate meshes with
     ``[bx, by]`` as the JAX core and the reference do, which is only
-    self-consistent for square maps; others raise."""
+    self-consistent for square maps; others raise. With a data mesh both
+    sums are over every rank's chunks (one ``all_reduce``)."""
     if spec.topology == "hexagonal" and spec.x != spec.y:
         raise ValueError(
             "topographic_error on hexagonal topology requires a square map "
@@ -459,6 +492,8 @@ def make_topographic_stats_fn(spec: SomSpec):
                 bad = torch.sqrt(dx * dx + dy * dy) > 1.5
             errs = errs + torch.sum(bad.to(_F32) * m)
             n = n + torch.sum(m)
+        if mesh is not None:
+            errs, n = _all_reduce_sum(torch.stack((errs, n)), mesh)
         return errs, n
 
     return run

@@ -29,6 +29,11 @@ is no program to cache. Per-member knobs: ``random_seed``, ``sigma``,
 ``sigmaN``, ``learning_rate``, ``learning_rateN`` (a scalar is shared, a
 length-P sequence is per member); everything else is shared. Members are
 real ``XPySom`` objects on the population's device.
+
+Data parallel (``mesh=``, ``parallel.mesh``): each rank computes the
+(P, XY, D+1) statistics of its block of the chunks (or of its own
+streamed source), all_reduced once an epoch, so every rank updates every
+member alike; the population QE reduces its sums.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from ..ops.distances import (
 )
 from ..ops.kernels import stats as kstats
 from ..ops.kernels import tile as ktile
+from ..parallel.mesh import all_reduce_sum, is_grid_mesh, mesh_spans_processes, resolve_mesh
 from ..parallel.pipeline import (
     default_superbatch_rows,
     device_superbatches,
@@ -55,7 +61,7 @@ from ..parallel.pipeline import (
 from ..utils import serialization
 from ..utils.hw import default_n_parallel, resolve_device, training_chunk
 from ..utils.progress import ProgressReporter
-from .som import XPySom, _as_numpy_2d, _not_ported
+from .som import XPySom, _as_numpy_2d, _chunks_on
 
 __all__ = ["SomPopulation"]
 
@@ -140,11 +146,12 @@ def _pop_update(specs, num_epochs: int):
     return update
 
 
-def make_population_qe_fn(spec0, n_pop: int):
+def make_population_qe_fn(spec0, n_pop: int, mesh=None):
     """``qstats(w, data, mask) -> (Σ‖x − W_p[bmu_p]‖ per member (P,),
     Σ mask)``: the BMU by euclidean distance whatever the activation (the
     reference's definition), every member searched by one concatenated
-    fp32 GEMM per chunk."""
+    fp32 GEMM per chunk. With a data mesh the sums are over every rank's
+    chunks (one ``all_reduce``)."""
     xy = spec0.xy
 
     def run(w, data, mask):
@@ -159,6 +166,9 @@ def make_population_qe_fn(spec0, n_pop: int):
             res = x[None] - w[members, bmu.long()]  # (P, chunk, D)
             tot = tot + torch.sum(torch.linalg.vector_norm(res, dim=2) * m[None], dim=1)
             n = n + torch.sum(m)
+        if mesh is not None:
+            both = all_reduce_sum(torch.cat((tot, n[None])), mesh)
+            tot, n = both[:n_pop], both[n_pop]
         return tot, n
 
     return run
@@ -195,8 +205,9 @@ class SomPopulation:
     length-``n_members`` sequence. An int ``random_seed`` seeds member i
     with ``random_seed + i``. All other arguments match ``XPySom`` and are
     shared. ``device`` is where every member computes (default: the card,
-    ``RuntimeError`` without one; ``'cpu'`` for the CPU). ``mesh=``
-    (data-parallel training) is not ported yet.
+    ``RuntimeError`` without one; ``'cpu'`` for the CPU). ``mesh`` is a
+    data mesh as ``XPySom``'s (one process per card; every rank makes the
+    same calls); members run on the rank's device without one.
 
     Typical model-selection sweep::
 
@@ -229,8 +240,12 @@ class SomPopulation:
     ):
         if not isinstance(n_members, (int, np.integer)) or n_members < 1:
             raise ValueError(f"n_members must be a positive int, got {n_members!r}")
-        if mesh is not None:
-            _not_ported("SomPopulation(mesh=...) (data-parallel population training)", 8)
+        if is_grid_mesh(mesh):
+            raise ValueError(
+                "SomPopulation supports 1-D data-parallel meshes only "
+                "(a 'data' axis); grid-sharded (data, model) meshes apply "
+                "to single large maps via XPySom(mesh=...)"
+            )
         self._n_members = int(n_members)
 
         sigmas = _broadcast(sigma, n_members, "sigma")
@@ -244,7 +259,11 @@ class SomPopulation:
             seeds = _broadcast(random_seed, n_members, "random_seed")
 
         # the device as the caller gave it and as resolved here; a pickle
-        # keeps the first and resolves it again on the loading host
+        # keeps the first and resolves it again on the loading host. Under
+        # a mesh, the rank's device, which the members take too
+        self._mesh = resolve_mesh(mesh, device)
+        if self._mesh is not None:
+            device = self._mesh.device
         self._device_arg = device
         self._resolved_device = resolve_device(device)
 
@@ -328,6 +347,12 @@ class SomPopulation:
         """The (P, XY, D) codebooks on the device: one upload."""
         w = self.weights.reshape(self._n_members, self._x * self._y, self._input_len)
         return torch.from_numpy(w).to(self._device)
+
+    def _chunked(self, data2d, budget: int):
+        """Resident chunks as a member's ``_chunked`` makes them (the
+        member's training chunk rule), over the population's mesh."""
+        return _chunks_on(data2d, training_chunk(data2d.shape[0], budget), self._mesh,
+                          self._device)
 
     def _write_back(self, w):
         w_host = w.cpu().numpy()
@@ -414,20 +439,20 @@ class SomPopulation:
                 raise ValueError("Received %d features, expected %d." % (d, self._input_len))
             # out of core: the statistics folded over streamed superbatches
             # (the running total carried, so the chunks' partials add in the
-            # resident order); one process only
+            # resident order), with a mesh each rank's own, reduced once
             rows, n = self._superbatch_rows(), len(src)
             chunk = self._stream_chunk(rows, n, budget)
 
             def epoch_stats(w):
-                return stats_streaming(specs[0], w, src, chunk, rows, stats_fn=stats)
+                return stats_streaming(specs[0], w, src, chunk, rows, stats, self._mesh)
         else:
             data2d = _as_numpy_2d(data)
             self._check_input_len(data2d)
             # one device-resident copy of the chunks for every member
-            chunks, mask, n = self._members_list[0]._chunked(data2d, budget)
+            chunks, mask, n = self._chunked(data2d, budget)
 
             def epoch_stats(w):
-                return stats(w, chunks, mask)
+                return all_reduce_sum(stats(w, chunks, mask), self._mesh)
 
         update = _pop_update(specs, num_epochs)
         w = self._stacked_device_weights()
@@ -459,10 +484,10 @@ class SomPopulation:
         serialization.save_population_checkpoint(self, path, epoch=epoch)
 
     @classmethod
-    def load_checkpoint(cls, path, *, device=None):
+    def load_checkpoint(cls, path, *, device=None, mesh=None):
         """A population from a checkpoint of either package, on ``device``
-        (default: the card)."""
-        return serialization.load_population_checkpoint(path, device=device)
+        (default: the card), over ``mesh`` (as the constructor's)."""
+        return serialization.load_population_checkpoint(path, device=device, mesh=mesh)
 
     # -- scoring ---------------------------------------------------------------
 
@@ -471,10 +496,16 @@ class SomPopulation:
         streams in superbatches, each superbatch's per-member sums folded
         on the host after one synchronization at the end; no winner is
         kept."""
-        qe_fn = make_population_qe_fn(self._members_list[0]._spec, self._n_members)
+        qe_fn = make_population_qe_fn(self._members_list[0]._spec, self._n_members, self._mesh)
         w = self._stacked_device_weights()  # one upload per call
         src = XPySom._as_source(data)
         if src is not None:
+            if mesh_spans_processes(self._mesh):
+                raise NotImplementedError(
+                    "streaming inference over a multi-host mesh is not "
+                    "supported: run it per host with mesh=None or pass "
+                    "resident data (identical on every process)"
+                )
             rows = self._superbatch_rows()
             chunk = self._stream_chunk(rows, len(src), self._n_parallel)
             parts = []
@@ -489,7 +520,7 @@ class SomPopulation:
         else:
             data2d = np.atleast_2d(_as_numpy_2d(data))
             self._check_input_len(data2d)
-            chunks, mask, _ = self._members_list[0]._chunked(data2d, self._n_parallel)
+            chunks, mask, _ = self._chunked(data2d, self._n_parallel)
             tot, n = qe_fn(w, chunks, mask)
             tot, n = tot.cpu().numpy(), float(n)
         if n == 0:
@@ -522,8 +553,11 @@ class SomPopulation:
 
     def __getstate__(self):
         """Pickle support: drop the resolved device, keep the one the
-        caller gave (members do the same)."""
+        caller gave (members do the same); drop the mesh, so the loaded
+        population runs without one, as the JAX package's does (pass
+        ``mesh=`` again to a new population to train over processes)."""
         state = self.__dict__.copy()
         state["_resolved_device"] = None
+        state["_mesh"] = None
         return state
 

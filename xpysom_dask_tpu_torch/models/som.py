@@ -2,7 +2,7 @@
 
 Counterpart of ``xpysom_dask_tpu/models/som.py``: the same constructor
 surface and the same training and scoring methods, on PyTorch tensors.
-``mesh=``, ``bmu_tiles=`` and ``use_pallas=`` give way to ``device=`` and
+``bmu_tiles=`` and ``use_pallas=`` give way to ``device=`` and
 ``use_kernels=``; ``xp=`` and ``dask_chunks=`` are accepted and ignored.
 The codebook lives on the host as a numpy array (``get_weights()``),
 initialized from numpy's ``RandomState(random_seed)`` exactly as the JAX
@@ -20,9 +20,15 @@ the JAX package's ``.npz`` format, pickling, ``verbose`` progress,
 ``get_neig_functions`` and ``autotune_kernel``. Source-like data (a
 ``parallel.pipeline`` DataSource or an ``np.memmap``) streams through the
 card in superbatches in ``train``, ``predict``, ``quantization_error``,
-``topographic_error`` and ``activation_response``. ``use_dask=True``
-(data-parallel training) still raises ``NotImplementedError`` naming its
-ROADMAP item.
+``topographic_error`` and ``activation_response``.
+
+Data parallel (``mesh=``, ``use_dask=True``): one process per card,
+joined by ``torch.distributed`` (``parallel.mesh``). Each rank trains on
+its block of the chunks and updates from the statistics all_reduced once
+an epoch, so every rank holds the same codebook; ``winner``/``predict``
+gather every rank's winners, QE and TE reduce their sums. Every rank must
+make the same calls with the same resident data; a streamed source is
+each rank's own (training only).
 """
 
 from __future__ import annotations
@@ -40,6 +46,12 @@ from .. import core
 from ..core import SomSpec, chunk_data
 from ..ops.decays import DECAY_REGISTRY
 from ..ops.distances import DistanceFunction, euclidean_distance, manhattan_distance_no_opt
+from ..parallel.mesh import (
+    fetch_global,
+    mesh_spans_processes,
+    put_with_sharding,
+    resolve_mesh,
+)
 from ..parallel.pipeline import (
     ArraySource,
     default_superbatch_rows,
@@ -56,11 +68,14 @@ _RECT_NEIGS = ("gaussian", "mexican_hat", "bubble", "triangle")
 _HEX_NEIGS = ("gaussian", "mexican_hat", "bubble")
 
 
-def _not_ported(what: str, item: int):
-    raise NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP Queue 1 "
-        f"item {item})"
-    )
+def _chunks_on(data2d: np.ndarray, chunk: int, mesh, device):
+    """``chunk_data``'s (C, chunk, D) chunks, (C, chunk) mask and row count,
+    the chunks and mask on ``device``; with a mesh, the chunk count padded
+    to a multiple of the world size (the last rank's extra chunks fully
+    masked: their statistics are exact zeros) and only this rank's block
+    uploaded, on the rank's device."""
+    chunks, mask, n = chunk_data(data2d, chunk, multiple_of=1 if mesh is None else mesh.world)
+    return put_with_sharding(chunks, mesh, device), put_with_sharding(mask, mesh, device), n
 
 
 def _as_numpy_2d(data) -> np.ndarray:
@@ -105,6 +120,7 @@ class XPySom:
         xp=None,
         use_dask=False,
         dask_chunks="auto",
+        mesh=None,
         device=None,
         bmu_precision=None,
         use_kernels=None,
@@ -116,7 +132,17 @@ class XPySom:
 
         device : str | torch.device (default: 'cuda'). Where training and
             scoring run. Without a usable card the default raises
-            RuntimeError; pass device='cpu' to run on the CPU.
+            RuntimeError; pass device='cpu' to run on the CPU. With a mesh
+            the default is the rank's card (``parallel.mesh``).
+
+        mesh : None | 'auto' | int | torch.distributed.ProcessGroup |
+            parallel.DataMesh (default None). Data-parallel training over
+            the processes of a process group, one process per card:
+            'auto' (or True) is the default group (a world of 1 when none
+            is initialized), an int must equal its world size, a group is
+            used as given; a (data, model) grid raises
+            NotImplementedError (codebook sharding is not ported yet).
+            ``use_dask=True`` maps to mesh='auto' with a warning.
 
         use_kernels : bool (default True). False runs the plain PyTorch
             versions of the kernels on the card too (the reference's
@@ -149,7 +175,9 @@ class XPySom:
         if xp is not None:
             warn("xp= is ignored: computation always runs on PyTorch.")
         if use_dask:
-            _not_ported("use_dask=True (data-parallel training)", 8)
+            warn("use_dask is deprecated: mapping to mesh='auto' (shard_map DP).")
+            if mesh is None:
+                mesh = "auto"
         self.dask_chunks = dask_chunks  # accepted, unused
 
         self._learning_rate = learning_rate
@@ -221,11 +249,15 @@ class XPySom:
                 "outruns 'packed' at wide D — prefer 'packed' here."
             )
 
-        # the device as the caller gave it (None: the card) and as resolved
-        # here; a pickle keeps the first and resolves it again on the
-        # loading host, at first use
+        # the device as the caller gave it (None: the card, the rank's card
+        # under a mesh) and as resolved here; a pickle keeps the first and
+        # resolves it again on the loading host, at first use
         self._device_arg = device
-        self._resolved_device = resolve_device(device)
+        self._mesh_arg = mesh
+        self._mesh = resolve_mesh(mesh, device)
+        self._resolved_device = (
+            self._mesh.device if self._mesh is not None else resolve_device(device)
+        )
         # The kernels' chunk default (16384) is only safe where the search
         # never builds the (chunk, XY) distance matrix: ask the dispatch
         # gate, as the JAX model does
@@ -260,11 +292,28 @@ class XPySom:
         return self._resolved_device
 
     def __getstate__(self):
-        """Pickle support: drop the resolved device, keep the one the
-        caller gave (the JAX package drops its device handles likewise)."""
+        """Pickle support: drop the resolved device and the mesh, keep the
+        device the caller gave and the mesh argument, a process group as
+        its world size (the JAX package drops its device handles and keeps
+        a mesh's device count likewise)."""
         state = self.__dict__.copy()
         state["_resolved_device"] = None
+        state["_mesh"] = None
+        if self._mesh is not None and not isinstance(self._mesh_arg, (bool, str, int)):
+            state["_mesh_arg"] = self._mesh.world
         return state
+
+    def __setstate__(self, state):
+        """Resolve the mesh again on the loading host; where it cannot be
+        (fewer processes, no card), the model runs without one, as the JAX
+        package falls back to a single device."""
+        self.__dict__.update(state)
+        try:
+            self._mesh = resolve_mesh(state.get("_mesh_arg"), self._device_arg)
+        except (ValueError, RuntimeError):
+            self._mesh = self._mesh_arg = None
+        if self._mesh is not None:
+            self._resolved_device = self._mesh.device
 
     @property
     def _spec(self) -> SomSpec:
@@ -299,16 +348,12 @@ class XPySom:
         return min(self._n_parallel, default_n_parallel(self._x * self._y, self._device.type))
 
     def _chunked(self, data2d: np.ndarray, chunk: int = None):
-        """Pad + chunk host data and place it on the device. One chunk
-        rule for training and inference: eager PyTorch has no compiled
-        shapes to bucket. ``chunk`` overrides the budget ``n_parallel``."""
+        """Pad + chunk host data and place it on the device (with a mesh,
+        this rank's block: ``_chunks_on``). One chunk rule for training and
+        inference: eager PyTorch has no compiled shapes to bucket.
+        ``chunk`` overrides the budget ``n_parallel``."""
         chunk = training_chunk(data2d.shape[0], chunk or self._n_parallel)
-        chunks, mask, n = chunk_data(data2d, chunk)
-        return (
-            torch.from_numpy(chunks).to(self._device),
-            torch.from_numpy(mask).to(self._device),
-            n,
-        )
+        return _chunks_on(data2d, chunk, self._mesh, self._device)
 
     def _device_weights(self):
         return torch.from_numpy(np.asarray(self._weights, dtype=np.float32)).to(
@@ -344,10 +389,29 @@ class XPySom:
         """~256 MB device-resident blocks — the pipeline's shared rule."""
         return default_superbatch_rows(self._input_len)
 
+    def _guard_multihost_streaming_inference(self):
+        """Streaming INFERENCE over a mesh that spans processes is gated:
+        per-rank sources yield per-rank-distinct blocks whose outputs are
+        not gathered on the inference paths (only the training loop keeps
+        the ranks in step, ``parallel.pipeline._synced_superbatches``), so
+        per-row outputs would interleave wrongly. Run inference per
+        process with mesh=None (it is embarrassingly parallel), or pass
+        resident (process-identical) data."""
+        if mesh_spans_processes(self._mesh):
+            raise NotImplementedError(
+                "streaming inference over a multi-host mesh is not "
+                "supported: run it per host with mesh=None (per-row "
+                "inference is embarrassingly parallel) or pass resident "
+                "data (identical on every process)"
+            )
+
     def _stream(self, src, chunk=None):
         """The superbatches of ``src`` on the device as ``(chunks, mask,
         n)``, through the pipeline's feed (pinned buffers and a copy stream
-        on the card). ``chunk`` overrides the budget ``n_parallel``."""
+        on the card). ``chunk`` overrides the budget ``n_parallel``. Every
+        streamed scoring path comes through here, so the multi-process
+        guard is checked here, before the first superbatch."""
+        self._guard_multihost_streaming_inference()
         rows = self._superbatch_rows()
         chunk = training_chunk(rows, chunk or self._n_parallel)
         for chunks, mask, n in device_superbatches(src, rows, chunk, self._device):
@@ -414,8 +478,9 @@ class XPySom:
         if data2d.shape[0] == 0:
             return np.empty(0, dtype=np.int64)
         chunks, _, n = self._chunked(data2d)
-        bmu = core.make_bmu_fn(spec or self._spec)(self._device_weights(), chunks)
-        return bmu.reshape(-1)[:n].cpu().numpy()
+        bmu = core.make_bmu_fn(spec or self._spec, self._mesh)(self._device_weights(), chunks)
+        # every rank's winners, in rank order, on every rank
+        return fetch_global(bmu, self._mesh).reshape(-1)[:n].cpu().numpy()
 
     def winner(self, x):
         """Coordinates of the winning neurons for samples x."""
@@ -461,7 +526,12 @@ class XPySom:
         ``XPySom.load_checkpoint(path)`` and ``train(data, num_epochs,
         iter_beg=ckpt._checkpoint_epoch)`` resume bit for bit.
         ``verbose=True`` prints a progress bar and, at the end, the
-        quantization error (of the first superbatch for streamed data)."""
+        quantization error (of the first superbatch for streamed data).
+
+        With a mesh, every rank calls ``train`` with the same resident data
+        (each trains on its block of the chunks) or with its own source
+        (``ShardedFileSource`` reads ``files[rank::world]``); every rank
+        ends with the same codebook, and rank 0 writes the checkpoints."""
         if checkpoint_every < 0:
             raise ValueError(f"checkpoint_every={checkpoint_every} must be >= 0")
         if iter_end is None:
@@ -475,7 +545,7 @@ class XPySom:
                 return train_streaming(
                     self._spec, w, src, num_epochs, iter_beg=beg, iter_end=end,
                     chunk=self._n_parallel, superbatch_rows=self._superbatch_rows(),
-                    device=self._device, progress=progress,
+                    device=self._device, mesh=self._mesh, progress=progress,
                 )
 
             def to_host(w):
@@ -484,7 +554,7 @@ class XPySom:
             data2d = _as_numpy_2d(data)
             self._check_input_len(data2d)
             chunks, mask, n = self._chunked(data2d)
-            train_fn = core.make_train_fn(self._spec, num_epochs)
+            train_fn = core.make_train_fn(self._spec, num_epochs, self._mesh)
             w = self._device_weights()
 
             def run(w, beg, end, progress):
@@ -570,7 +640,7 @@ class XPySom:
             warn("quantization_error: received no rows.")
             return float("nan")
         chunks, mask, _ = self._chunked(data2d)
-        tot, n = core.make_quantization_stats_fn(self._spec)(
+        tot, n = core.make_quantization_stats_fn(self._spec, self._mesh)(
             self._device_weights(), chunks, mask
         )
         return float(tot) / float(n)
@@ -601,7 +671,7 @@ class XPySom:
             warn("topographic_error: received no rows.")
             return float("nan")
         chunks, mask, _ = self._chunked(data2d, self._te_chunk)
-        errs, n = core.make_topographic_stats_fn(self._spec)(
+        errs, n = core.make_topographic_stats_fn(self._spec, self._mesh)(
             self._device_weights(), chunks, mask
         )
         return float(errs) / float(n)
@@ -840,22 +910,25 @@ class XPySom:
     def save_checkpoint(self, path, *, epoch=None):
         """Portable .npz checkpoint (codebook + RNG + config header) in the
         JAX package's format; see ``utils.serialization``. Pair with
-        ``train(..., iter_beg=epoch)`` to resume."""
+        ``train(..., iter_beg=epoch)`` to resume. With a mesh every rank
+        calls it: rank 0 writes, and no rank returns before the file is
+        in place."""
         serialization.save_checkpoint(self, path, epoch=epoch)
 
     @classmethod
-    def load_checkpoint(cls, path, *, device=None):
+    def load_checkpoint(cls, path, *, device=None, mesh=None):
         """A model from a checkpoint of either package, on ``device``
-        (default: the card)."""
-        return serialization.load_checkpoint(path, device=device)
+        (default: the card), over ``mesh`` (as the constructor's)."""
+        return serialization.load_checkpoint(path, device=device, mesh=mesh)
 
     def __repr__(self):
         device = self._resolved_device or self._device_arg or "cuda"
+        mesh = "" if self._mesh is None else f", mesh={self._mesh!r}"
         return (
             f"XPySom({self._x}x{self._y}, input_len={self._input_len}, "
             f"topology={self.topology!r}, "
             f"neighborhood={self.neighborhood_func_name!r}, "
             f"distance={self._activation_distance_name!r}, "
             f"bmu_precision={self._bmu_precision!r}, "
-            f"device={str(device)!r})"
+            f"device={str(device)!r}{mesh})"
         )

@@ -1,7 +1,18 @@
-"""Distribution layer of the port: the single-process streaming pipeline
-(counterpart of ``xpysom_dask_tpu/parallel/pipeline.py``). Data-parallel
-and codebook-sharded training are ROADMAP Queue 1 items 8 and 11."""
+"""Distribution layer of the port: data-parallel process groups (counterpart
+of ``xpysom_dask_tpu/parallel/mesh.py``) and the streaming pipeline
+(``xpysom_dask_tpu/parallel/pipeline.py``). Codebook-sharded training
+(``grid_sharded.py``) is ROADMAP Queue 1 item 11."""
 
+from .mesh import (
+    DataMesh,
+    all_reduce_sum,
+    fetch_global,
+    initialize_multihost,
+    make_data_mesh,
+    mesh_spans_processes,
+    put_with_sharding,
+    resolve_mesh,
+)
 from .pipeline import (
     ArraySource,
     DataSource,
@@ -15,6 +26,14 @@ from .pipeline import (
 )
 
 __all__ = [
+    "DataMesh",
+    "initialize_multihost",
+    "make_data_mesh",
+    "resolve_mesh",
+    "mesh_spans_processes",
+    "put_with_sharding",
+    "fetch_global",
+    "all_reduce_sum",
     "DataSource",
     "ArraySource",
     "FileSource",

@@ -20,9 +20,13 @@ not reused before the kernels that read it have finished, and a pinned
 buffer is refilled only after the copy out of it has finished. On the CPU
 the feed is a plain loop.
 
-One process only: the multi-process parts of the JAX pipeline (the
-superbatch synchronization across processes and the host gather) are
-ROADMAP Queue 1 item 8.
+Across processes (a data mesh, ``parallel.mesh``): each rank streams its
+own source (``ShardedFileSource`` reads ``files[rank::world]``), carries
+its own running total and all_reduces it once at the end of the epoch.
+The ranks stay in step superbatch by superbatch
+(:func:`_synced_superbatches`): one ``all_reduce(MAX)`` of the row count a
+step, a rank that has run out feeding empty, fully masked superbatches
+(exact zero partials) until every rank is done.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import torch
 from ..core import SomSpec, chunk_data, make_stats_fn, make_update_fn
 from ..utils.hw import resolve_device, training_chunk
 from ..utils.native import load_chunkloader
+from .mesh import agree_max, all_reduce_sum, mesh_spans_processes, process_topology
 
 __all__ = [
     "DataSource",
@@ -67,24 +72,6 @@ def _check_rows(rows: int) -> int:
     if rows <= 0:
         raise ValueError(f"superbatch rows must be positive, got {rows}")
     return rows
-
-
-def _process_topology():
-    """``(rank, world size)`` of the ``torch.distributed`` process group
-    when one is initialized, else ``(0, 1)``."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
-
-
-def _single_process(what: str) -> None:
-    _, world = _process_topology()
-    if world > 1:
-        raise NotImplementedError(
-            f"{what} across {world} processes is not ported to the PyTorch "
-            "package yet (ROADMAP Queue 1 item 8)"
-        )
 
 
 class ArraySource:
@@ -217,17 +204,18 @@ class ShardedFileSource:
     and blocks are re-joined across shard boundaries so superbatches keep
     the requested size.
 
-    ``process_id``/``num_processes`` default to the ``torch.distributed``
-    rank and world size when a process group is initialized, else 0 and
-    1; pass them explicitly for testing or external launchers. (Training
-    across processes is ROADMAP Queue 1 item 8.)"""
+    ``process_id``/``num_processes`` default to the rank and world size of
+    ``mesh`` (a data mesh, ``parallel.mesh``); without one, to those of the
+    default ``torch.distributed`` process group when one is initialized,
+    else 0 and 1. Pass them explicitly for testing or external
+    launchers."""
 
-    def __init__(self, files, n_cols: int, *, process_id=None, num_processes=None,
-                 n_buffers: int = 3):
+    def __init__(self, files, n_cols: int, *, mesh=None, process_id=None,
+                 num_processes=None, n_buffers: int = 3):
         files = [str(f) for f in files]
         if not files:
             raise ValueError("ShardedFileSource needs at least one file")
-        rank, world = _process_topology()
+        rank, world = process_topology(mesh)
         process_id = rank if process_id is None else int(process_id)
         num_processes = world if num_processes is None else int(num_processes)
         if not 0 <= process_id < num_processes:
@@ -275,27 +263,55 @@ def default_superbatch_rows(d: int) -> int:
     return max(4096, min(1 << 22, (1 << 28) // (4 * max(int(d), 1))))
 
 
-def device_superbatches(source: DataSource, rows: int, chunk: int, device):
+def _synced_superbatches(source: DataSource, rows: int, chunk: int, mesh):
+    """Yield ``(block, min_chunks)`` for each superbatch of ``source``.
+    Across processes the ranks stay in step: every rank yields the same
+    number of pairs an epoch, and ``min_chunks`` is the most chunks any
+    rank's block needs this step, agreed by one ``all_reduce(MAX)`` of the
+    row count a step (-1 once a rank is done), so every rank's superbatch
+    has the same chunk count. A rank that has run out yields empty blocks
+    of the source's width (``source.dim``), which pad to fully masked
+    chunks, until every rank is done. One process: ``source``'s blocks and
+    1."""
+    if not mesh_spans_processes(mesh):
+        for block in source.superbatches(rows):
+            yield block, 1
+        return
+    it = iter(source.superbatches(rows))
+    while True:
+        block = next(it, None)
+        most = agree_max(-1 if block is None else np.shape(block)[0], mesh)
+        if most < 0:
+            return  # every rank is done
+        if block is None:
+            block = np.zeros((0, source.dim), np.float32)
+        yield block, max(1, -(-most // chunk))
+
+
+def device_superbatches(source: DataSource, rows: int, chunk: int, device, mesh=None):
     """Yield each superbatch of ``source`` on ``device`` as ``(chunks,
     mask, n)``: ``core.chunk_data``'s (C, chunk, D) chunks, zero-padded to
-    whole chunks, its (C, chunk) float32 mask and the row count. On the
-    card through pinned buffers and a side copy stream (module
-    docstring); the tensors are ready for work enqueued on the current
-    stream."""
+    whole chunks (with a mesh spanning processes, to the chunk count the
+    ranks agree on, :func:`_synced_superbatches`), its (C, chunk) float32
+    mask and the row count. On the card through pinned buffers and a side
+    copy stream (module docstring); the tensors are ready for work
+    enqueued on the current stream."""
     rows = _check_rows(rows)
     device = torch.device(device)
+    blocks = _synced_superbatches(source, rows, chunk, mesh)
     if device.type != "cuda":
-        for block in source.superbatches(rows):
-            chunks, mask, n = chunk_data(np.atleast_2d(np.asarray(block, np.float32)), chunk)
+        for block, min_chunks in blocks:
+            block = np.atleast_2d(np.asarray(block, np.float32))
+            chunks, mask, n = chunk_data(block, chunk, min_chunks=min_chunks)
             yield torch.from_numpy(chunks).to(device), torch.from_numpy(mask).to(device), n
         return
     compute = torch.cuda.current_stream(device)
     copy = torch.cuda.Stream(device)
     buffers = [None, None]  # per slot: (pinned rows, event of the copy out of it)
-    for k, block in enumerate(source.superbatches(rows)):
+    for k, (block, min_chunks) in enumerate(blocks):
         block = np.atleast_2d(np.asarray(block, np.float32))
         n, d = block.shape
-        c = max(1, -(-n // chunk))
+        c = max(min_chunks, -(-n // chunk))
         total = c * chunk
         slot = buffers[k % 2]
         if slot is not None and slot[0].shape[0] >= total and slot[0].shape[1] == d:
@@ -321,16 +337,19 @@ def device_superbatches(source: DataSource, rows: int, chunk: int, device):
 
 
 def stats_streaming(spec: SomSpec, w, source: DataSource, chunk: int, superbatch_rows: int,
-                    stats_fn=None):
+                    stats_fn=None, mesh=None):
     """One epoch's sufficient statistics ``[S | cnt]`` ((XY, D+1) f32 on
     ``w``'s device) folded over streamed superbatches, the running total
-    carried through ``stats_fn`` (default ``core.make_stats_fn(spec)``).
-    ``w`` is the (X, Y, D) codebook on its device."""
-    _single_process("streaming statistics")
+    carried through ``stats_fn`` (default ``core.make_stats_fn(spec)``;
+    a stats function of the same shape, as the population passes, may
+    return a stack of them). ``w`` is the (X, Y, D) codebook on its
+    device. With a data mesh, ``source`` is this rank's own and the result
+    is the sum over the ranks: each rank's running total, all_reduced
+    once."""
     if stats_fn is None:
         stats_fn = make_stats_fn(spec)
     acc = None
-    for chunks, mask, _ in device_superbatches(source, superbatch_rows, chunk, w.device):
+    for chunks, mask, _ in device_superbatches(source, superbatch_rows, chunk, w.device, mesh):
         if chunks.shape[-1] != spec.input_len:
             raise ValueError(
                 f"Received {chunks.shape[-1]} features, expected {spec.input_len}."
@@ -338,7 +357,7 @@ def stats_streaming(spec: SomSpec, w, source: DataSource, chunk: int, superbatch
         acc = stats_fn(w, chunks, mask, acc)
     if acc is None:
         raise ValueError("empty data source")
-    return acc
+    return all_reduce_sum(acc, mesh)
 
 
 def train_streaming(
@@ -352,6 +371,7 @@ def train_streaming(
     chunk: int = 8192,
     superbatch_rows: Optional[int] = None,
     device=None,
+    mesh=None,
     progress=None,
 ) -> np.ndarray:
     """Full streamed training: per epoch, fold the statistics over the
@@ -359,12 +379,13 @@ def train_streaming(
     resident path). Returns the (X, Y, D) float32 codebook on the host.
 
     ``device`` defaults to the card (``RuntimeError`` without one; pass
-    ``'cpu'`` for the CPU). ``superbatch_rows`` defaults to a ~256 MB block
+    ``'cpu'`` for the CPU); with a data mesh ``mesh`` (``parallel.mesh``),
+    the mesh's device, ``source`` is this rank's own, and every rank
+    returns the same codebook. ``superbatch_rows`` defaults to a ~256 MB block
     (:func:`default_superbatch_rows`); ``chunk`` is aligned as the resident
     path aligns it (``utils.hw.training_chunk``), so a superbatch that is
     a multiple of the chunk gives the resident path's chunks and its bits.
     ``progress(t)`` is called after each epoch ``t``."""
-    _single_process("streaming training")
     if iter_end is None:
         iter_end = num_epochs
     if superbatch_rows is None:
@@ -374,9 +395,9 @@ def train_streaming(
     stats_fn = make_stats_fn(spec)
     update_fn = make_update_fn(spec, num_epochs)
     host = np.ascontiguousarray(weights, dtype=np.float32)
-    w = torch.from_numpy(host).to(resolve_device(device))
+    w = torch.from_numpy(host).to(mesh.device if mesh is not None else resolve_device(device))
     for t in range(iter_beg, iter_end):
-        acc = stats_streaming(spec, w, source, chunk, superbatch_rows, stats_fn=stats_fn)
+        acc = stats_streaming(spec, w, source, chunk, superbatch_rows, stats_fn, mesh)
         w = update_fn(w, acc, t)
         if progress is not None:
             progress(t)

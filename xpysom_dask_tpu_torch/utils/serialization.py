@@ -15,6 +15,11 @@ tiles); on load ``use_pallas`` maps to ``use_kernels`` and ``bmu_tiles`` is
 ignored. A population checkpoint (:func:`save_population_checkpoint`)
 holds the stacked (P, X, Y, D) codebooks, every member's RNG state and
 config, in the same format and with the JAX package's header.
+
+Under a data mesh (``parallel.mesh``) every rank holds the same codebook
+bit for bit (each updates from the same all_reduced statistics): rank 0
+writes, and a barrier follows every write, so no rank goes on (and reads
+the file) before it is in place.
 """
 
 from __future__ import annotations
@@ -24,7 +29,8 @@ import os
 import pickle
 
 import numpy as np
-import torch
+
+from ..parallel.mesh import barrier
 
 __all__ = [
     "save",
@@ -46,15 +52,13 @@ def _norm_path(path) -> str:
     return path if path.endswith(".npz") else path + ".npz"
 
 
-def _should_write() -> bool:
-    """In a multi-process run every process holds the same model state, so
-    only rank 0 writes the checkpoint — concurrent np.savez calls on one
+def _should_write(mesh) -> bool:
+    """Under a mesh every rank holds the same model state, so only rank 0
+    writes the checkpoint — concurrent np.savez calls on one
     shared-filesystem path would interleave and corrupt the zip exactly
-    when fault tolerance is needed."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank() == 0
-    return True
+    when fault tolerance is needed. Without a mesh the process's model is
+    its own, and it writes."""
+    return mesh is None or mesh.rank == 0
 
 
 def _atomic_savez(path: str, **arrays) -> None:
@@ -126,29 +130,29 @@ def save_checkpoint(som, path, *, epoch=None):
     have completed, so training can resume with
     ``train(data, T, iter_beg=epoch)``.
     """
-    if not _should_write():
-        return
-    path = _norm_path(path)
-    header = {
-        "format_version": _FORMAT_VERSION,
-        "config": _config_dict(som),
-        "epoch": epoch,
-    }
-    rng_state = som._random_generator.get_state()
-    _atomic_savez(
-        path,
-        header=np.frombuffer(json.dumps(header).encode(), dtype=np.uint8),
-        weights=np.asarray(som._weights),
-        rng_keys=np.asarray(rng_state[1]),
-        rng_meta=np.asarray([rng_state[2], rng_state[3], 0], dtype=np.float64),  # pos, has_gauss, pad
-        rng_gauss=np.asarray([rng_state[4]], dtype=np.float64),
-    )
+    if _should_write(som._mesh):
+        header = {
+            "format_version": _FORMAT_VERSION,
+            "config": _config_dict(som),
+            "epoch": epoch,
+        }
+        rng_state = som._random_generator.get_state()
+        _atomic_savez(
+            _norm_path(path),
+            header=np.frombuffer(json.dumps(header).encode(), dtype=np.uint8),
+            weights=np.asarray(som._weights),
+            rng_keys=np.asarray(rng_state[1]),
+            rng_meta=np.asarray([rng_state[2], rng_state[3], 0], dtype=np.float64),  # pos, has_gauss, pad
+            rng_gauss=np.asarray([rng_state[4]], dtype=np.float64),
+        )
+    barrier(som._mesh)
 
 
-def load_checkpoint(path, *, device=None):
+def load_checkpoint(path, *, device=None, mesh=None):
     """Rebuild an ``XPySom`` from a checkpoint of either package. ``device``
     is where the model runs on the loading host (default: the card) —
-    hardware is a property of the host, not of the checkpoint."""
+    hardware is a property of the host, not of the checkpoint — and
+    ``mesh`` the data mesh it trains over (as the constructor's)."""
     from ..models.som import XPySom
 
     with np.load(_norm_path(path)) as z:
@@ -181,6 +185,7 @@ def load_checkpoint(path, *, device=None):
             compact_support=cfg["compact_support"],
             n_parallel=cfg["n_parallel"],
             device=device,
+            mesh=mesh,
             # absent in format-1 checkpoints written before the kernel
             # config was stored: fresh resolution
             bmu_precision=cfg.get("bmu_precision"),
@@ -222,33 +227,33 @@ def save_population_checkpoint(pop, path, *, epoch=None):
     """One portable ``.npz`` for a whole ``SomPopulation``: the stacked
     (P, X, Y, D) codebooks, every member's RNG state and a header with each
     member's config — the population's :func:`save_checkpoint`."""
-    if not _should_write():
-        return
-    path = _norm_path(path)
-    header = {
-        "format_version": _FORMAT_VERSION,
-        "population": {
-            "n_members": pop.n_members,
-            # 0 = auto-sized, as for a single model's n_parallel
-            "n_parallel": int(pop._n_parallel) if pop._n_parallel_explicit else 0,
-            "configs": [_config_dict(m) for m in pop.members],
-        },
-        "epoch": epoch,
-    }
-    keys, meta, gauss = _rng_arrays([m._random_generator.get_state() for m in pop.members])
-    _atomic_savez(
-        path,
-        header=np.frombuffer(json.dumps(header).encode(), dtype=np.uint8),
-        weights=np.ascontiguousarray(pop.weights),
-        rng_keys=keys,
-        rng_meta=meta,
-        rng_gauss=gauss,
-    )
+    if _should_write(pop._mesh):
+        header = {
+            "format_version": _FORMAT_VERSION,
+            "population": {
+                "n_members": pop.n_members,
+                # 0 = auto-sized, as for a single model's n_parallel
+                "n_parallel": int(pop._n_parallel) if pop._n_parallel_explicit else 0,
+                "configs": [_config_dict(m) for m in pop.members],
+            },
+            "epoch": epoch,
+        }
+        keys, meta, gauss = _rng_arrays([m._random_generator.get_state() for m in pop.members])
+        _atomic_savez(
+            _norm_path(path),
+            header=np.frombuffer(json.dumps(header).encode(), dtype=np.uint8),
+            weights=np.ascontiguousarray(pop.weights),
+            rng_keys=keys,
+            rng_meta=meta,
+            rng_gauss=gauss,
+        )
+    barrier(pop._mesh)
 
 
-def load_population_checkpoint(path, *, device=None):
+def load_population_checkpoint(path, *, device=None, mesh=None):
     """Rebuild a ``SomPopulation`` from a population checkpoint of either
-    package, on ``device`` (default: the card)."""
+    package, on ``device`` (default: the card), over ``mesh`` (as the
+    constructor's)."""
     from ..models.population import SomPopulation
 
     with np.load(_norm_path(path)) as z:
@@ -291,6 +296,7 @@ def load_population_checkpoint(path, *, device=None):
             compact_support=c0["compact_support"],
             n_parallel=meta_hdr.get("n_parallel", 0),
             device=device,
+            mesh=mesh,
         )
         w = np.asarray(z["weights"])
         expect = (p, c0["x"], c0["y"], c0["input_len"])
