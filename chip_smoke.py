@@ -6,8 +6,9 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
     python3 chip_smoke.py --te-pass-of DIR   # only the TE pass, of the package in DIR
     python3 chip_smoke.py --manhattan-epoch-of DIR   # only the manhattan epoch, likewise
-    python3 chip_smoke.py --dist-cards N     # only phase 18's ranks: N on NCCL, one a card
+    python3 chip_smoke.py --dist-cards N     # only phases 18's and 19's ranks: N on NCCL, one a card
     python3 chip_smoke.py --dist-worker RANK WORLD BACKEND DIR   # one rank (phase 18 starts them)
+    python3 chip_smoke.py --grid-worker RANK WORLD BACKEND DIR   # one rank (phase 19 starts them)
 
 The second form times ``topographic_error``'s pass (phase 6), the third
 the manhattan epoch (phase 9), with the ``xpysom_dask_tpu_torch`` found in
@@ -128,7 +129,21 @@ Phases (each prints lines; any failure raises and exits non-zero):
      streamed epoch from three shard files split unevenly by
      ``ShardedFileSource`` and a fused population epoch of 4 flagship
      maps, each rank's codebooks bitwise equal to the other's and held
-     against one process's.
+     against one process's;
+ 19. codebook sharding over (data, model) grids (``phase_grid``) at the
+     flagship's full width: (a) a (1, 1) grid on NCCL, a world of one,
+     bitwise equal to ``mesh=None`` (codebook after 2 epochs, ``predict``,
+     QE, TE) with its K1/K9/K2 launches, and its epoch beside
+     ``mesh=None`` and the data mesh of the same world; (b) this script
+     run again as ``--grid-worker RANK 4 gloo DIR`` in four processes on
+     the one card: a (2, 2) grid (2 epochs, ``predict``, QE, TE, launches
+     on each rank) bitwise equal across the ranks and to a 2-rank data
+     mesh, and a (1, 2) grid on ranks 0 and 1 bitwise equal to one
+     process; each rank's grid epoch beside the data mesh of the same
+     world, the per-chunk merge alone and the update's gather alone
+     (CUDA events). ``--dist-cards 4`` runs (b) on NCCL, one rank a card,
+     with a (1, 4) grid too and one epoch and TE of a 512 x 512 x 64 map
+     at (1, 4) on 2^17 rows, bitwise one card's.
 Each kernel's record carries its launches on the path that runs it, its
 error against the plain version, its time, the plain version's, the time
 of one PyTorch library call that computes the same function where there
@@ -3043,30 +3058,6 @@ def dist_worker(rank, world, backend, store):
     return 0
 
 
-def _run_workers(store, world, backend):
-    """The ranks of the distributed phase, started together; all are
-    killed at the timeout or when one fails. Returns each rank's output."""
-    cmd = [sys.executable, os.path.abspath(__file__), "--dist-worker"]
-    procs = [subprocess.Popen(cmd + [str(r), str(world), backend, store],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(world)]
-    deadline = time.monotonic() + DIST_TIMEOUT_S
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
-    except subprocess.TimeoutExpired:
-        raise RuntimeError(f"distributed: a rank did not finish in {DIST_TIMEOUT_S} s")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        require(p.returncode == 0, f"distributed: rank {r} exited {p.returncode}:\n{log[-4000:]}")
-    return logs
-
-
 def phase_distributed(torch, card, workdir):
     """Data parallel over ``torch.distributed`` at the flagship's full
     width (phase 18 of the module docstring): (a) here, (b) in
@@ -3178,7 +3169,7 @@ def phase_ranks(torch, card, workdir, world, backend):
     w2 = single.train(data, 2).get_weights()
     pop1 = SomPopulation(4, *dims, **DIST_POP).train(data, 2, iter_end=1, strategy="fused").weights
     t0 = time.perf_counter()
-    logs = _run_workers(store, world, backend)
+    logs = _run_ranks(store, world, backend, "--dist-worker", DIST_TIMEOUT_S)
     took = time.perf_counter() - t0
     res = []
     for r, log in enumerate(logs):
@@ -3237,6 +3228,358 @@ def phase_ranks(torch, card, workdir, world, backend):
           f"{np.abs(r0['pop_w'] - pop1).max():.3g}; the workers {took:.1f} s")
 
 
+# Phase 19, codebook sharding: the flagship on (data, model) grids; on four
+# cards also a 512 x 512 x 64 map at (1, 4) on 2^17 rows, the size codebook
+# sharding exists for (65,536 nodes, 16.8 MB of codebook a rank). Each rank
+# is killed at the timeout, and the phase fails then.
+GRID_BIG = dict(x=512, y=512, d=64, n=1 << 17)
+GRID_TIMEOUT_S = 300
+
+
+def _sha(a):
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def _grid_parts_ms(torch, gs, spec, mesh, w_local, chunks, mask):
+    """A grid's epoch (epochs 3-5 of 10, CUDA events, after one unmeasured,
+    the centre carried as training carries it), the per-chunk merge alone
+    (the shard's winners of chunk 0 merged over the model group, mean of
+    20) and the update's gather alone (the shard's ``[S | cnt]`` and
+    codebook over the model group, mean of 10); milliseconds."""
+    import torch.distributed as dist
+
+    from xpysom_dask_tpu_torch.parallel import fetch_global
+
+    step = gs.make_epoch_fn_2d(spec, 10, mesh)
+    center = [None]
+
+    def epoch(w, c, m, t):
+        w, center[0] = step(w, c, m, t, center[0])
+        return w
+
+    epoch_ms = _pop_epoch_ms(torch, epoch, w_local, chunks, mask)
+    shard = gs._Shard(spec, spec.distance_fn(), mesh, w_local)
+    idx, val = shard.search.argmin(chunks[0], True)
+    merge_ms = cuda_ms(torch, lambda: gs._global_bmu(val, idx, shard.offset, mesh), reps=20)
+    # the merge's parts: the key arithmetic alone, its all_reduce(MIN) alone,
+    # an all_reduce(SUM) of as many f32 bytes, and one all_reduce(MIN) of
+    # every chunk's keys at once
+    key = gs.merge_key(val, idx)
+    parts = {
+        "keys": cuda_ms(torch, lambda: gs._split_key(gs.merge_key(val, idx)), reps=20),
+        "all_reduce MIN int64": cuda_ms(torch, lambda: dist.all_reduce(
+            key, op=dist.ReduceOp.MIN, group=mesh.model.group), reps=20),
+        "all_reduce SUM f32, same bytes": cuda_ms(torch, lambda: dist.all_reduce(
+            key.view(torch.float32), group=mesh.model.group), reps=20),
+    }
+    every = key.repeat(chunks.shape[0])
+    parts[f"all_reduce MIN int64 of {chunks.shape[0]} chunks' keys"] = cuda_ms(
+        torch, lambda: dist.all_reduce(every, op=dist.ReduceOp.MIN, group=mesh.model.group),
+        reps=5)
+    acc = gs.make_stats_fn_2d(spec, mesh)(w_local, chunks, mask)
+    gather_ms = cuda_ms(torch, lambda: (gs.gather_codebook(w_local, mesh),
+                                        fetch_global(acc, mesh.model)))
+    return epoch_ms, merge_ms, gather_ms, parts
+
+
+def grid_worker(rank, world, backend, store):
+    """One rank of the grid phase (``--grid-worker RANK WORLD BACKEND
+    DIR``): ``backend`` over the ``file://`` store in DIR, on the rank's
+    card. The flagship on a (2, 2) grid (and (1, 4) on four cards): 2
+    epochs, ``predict``, QE and TE with the launch counts, the grid epoch
+    beside the data mesh of the same world, the merge and the gather alone;
+    on ranks 0 and 1 a 2-rank data mesh and a (1, 2) grid; on four cards
+    the 512 x 512 x 64 map at (1, 4). Results in ``DIR/grid{RANK}.npz``
+    and a JSON line of times and launches."""
+    import torch
+    import torch.distributed as dist
+
+    from xpysom_dask_tpu_torch import XPySom
+    from xpysom_dask_tpu_torch.ops import kernels
+    from xpysom_dask_tpu_torch.parallel import initialize_multihost, make_data_mesh, make_grid_mesh
+    from xpysom_dask_tpu_torch.parallel import grid_sharded as gs
+    from xpysom_dask_tpu_torch.parallel.mesh import barrier
+
+    f = FLAGSHIP
+    dims, n_chunks = (f["x"], f["y"], f["d"]), f["n"] // f["chunk"]
+    initialize_multihost(f"file://{store}/rendezvous", world, rank, backend=backend)
+    require(dist.get_backend() == backend, f"backend {dist.get_backend()}")
+    pair = dist.new_group([0, 1])  # every rank enters; ranks 0 and 1 use it
+    whole = make_data_mesh()
+    data = _flagship_rows(f["n"], f["d"])
+    out, rec = {}, {"rank": rank, "grids": {}}
+    grids = [(2, 2), (1, 4)] if backend == "nccl" and world == 4 else [(2, 2)]
+    for shape in grids:
+        name = f"{shape[0]}x{shape[1]}"
+        mesh = make_grid_mesh(*shape)
+        som = XPySom(*dims, **FLAGSHIP_KW, mesh=mesh)
+        require(som._device.type == "cuda", f"grid {name} on {som._device}")
+        kernels.reset_launch_counts()
+        out[f"w2_{name}"] = som.train(data, 2).get_weights()
+        out[f"predict_{name}"] = som.predict(data)
+        out[f"qe_{name}"] = som.quantization_error(data)
+        out[f"te_{name}"] = som.topographic_error(data)
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        per = n_chunks // shape[0]
+        _expect_counts(f"grid {name}, rank {rank}", counts,
+                       {"bmu_argmin": 4 * per, "scatter_stats": 2 * per, "bmu_top2": per})
+        fresh = XPySom(*dims, **FLAGSHIP_KW, mesh=mesh)
+        chunks, mask, _ = fresh._chunked(data)
+        epoch, merge, gather, parts = _grid_parts_ms(torch, gs, fresh._spec, mesh,
+                                                     fresh._device_weights(), chunks, mask)
+        del chunks, mask
+        flat = XPySom(*dims, **FLAGSHIP_KW, mesh=whole)
+        chunks, mask, _ = flat._chunked(data)
+        from xpysom_dask_tpu_torch import core
+
+        data_ms = _pop_epoch_ms(torch, core.make_epoch_step(flat._spec, 10, whole),
+                                flat._device_weights(), chunks, mask)
+        del chunks, mask
+        rec["grids"][name] = {"launches": counts, "epoch_ms": epoch, "data_mesh_epoch_ms": data_ms,
+                              "merge_ms": merge, "merge_parts_ms": parts, "gather_ms": gather}
+        if shape == (2, 2):  # epoch 1, which the flips of epoch 2 are searched from
+            out["w1_2x2"] = XPySom(*dims, **FLAGSHIP_KW, mesh=mesh).train(
+                data, 2, iter_end=1).get_weights()
+    if rank < 2:
+        out["w2_dm2"] = XPySom(*dims, **FLAGSHIP_KW, mesh=make_data_mesh(group=pair)).train(
+            data, 2).get_weights()
+        som = XPySom(*dims, **FLAGSHIP_KW, mesh=make_grid_mesh(1, 2, group=pair))
+        kernels.reset_launch_counts()
+        out["w2_1x2"] = som.train(data, 2).get_weights()
+        out["predict_1x2"] = som.predict(data)
+        rec["grids"]["1x2"] = {"launches": {k: v for k, v in kernels.launch_counts().items()
+                                            if v}}
+    if backend == "nccl" and world == 4:
+        b = GRID_BIG
+        xb = _flagship_rows(b["n"], b["d"])
+        mesh = make_grid_mesh(1, 4)
+        som = XPySom(b["x"], b["y"], b["d"], **FLAGSHIP_KW, mesh=mesh)
+        kernels.reset_launch_counts()
+        w1 = som.train(xb, 1).get_weights()
+        out["big_te"] = som.topographic_error(xb)
+        out["big_sha"] = _sha(w1)
+        if rank == 0:
+            out["big_w1"] = w1
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        fresh = XPySom(b["x"], b["y"], b["d"], **FLAGSHIP_KW, mesh=mesh)
+        chunks, mask, _ = fresh._chunked(xb)
+        epoch, merge, gather, parts = _grid_parts_ms(torch, gs, fresh._spec, mesh,
+                                                     fresh._device_weights(), chunks, mask)
+        rec["grids"]["big 1x4"] = {"launches": counts, "epoch_ms": epoch, "merge_ms": merge,
+                                   "merge_parts_ms": parts, "gather_ms": gather}
+    barrier(whole)
+    require("jax" not in sys.modules, "JAX was imported")
+    np.savez(os.path.join(store, f"grid{rank}.npz"), **out)
+    print("grid worker " + json.dumps(rec))
+    dist.destroy_process_group()
+    return 0
+
+
+def _run_ranks(store, world, backend, flag, timeout_s):
+    """``world`` ranks of this script run as ``flag RANK WORLD BACKEND
+    DIR``, started together; all are killed at the timeout or when one
+    fails. Returns each rank's output."""
+    cmd = [sys.executable, os.path.abspath(__file__), flag]
+    procs = [subprocess.Popen(cmd + [str(r), str(world), backend, store],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    deadline = time.monotonic() + timeout_s
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+    except subprocess.TimeoutExpired:
+        raise RuntimeError(f"{flag}: a rank did not finish in {timeout_s} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        require(p.returncode == 0, f"{flag}: rank {r} exited {p.returncode}:\n{log[-4000:]}")
+    return logs
+
+
+def phase_grid(torch, card, workdir):
+    """Codebook sharding (phase 19 of the module docstring): (a) a (1, 1)
+    grid on NCCL, a world of one, bit for bit ``mesh=None``, with its
+    launch counts and epoch times beside ``mesh=None`` and the data mesh of
+    the same world; (b) :func:`phase_grid_ranks`, four gloo ranks on the
+    one card. Returns (a)'s launch counts."""
+    import torch.distributed as dist
+
+    from xpysom_dask_tpu_torch import XPySom, core
+    from xpysom_dask_tpu_torch.ops import kernels
+    from xpysom_dask_tpu_torch.parallel import initialize_multihost, make_data_mesh, make_grid_mesh
+    from xpysom_dask_tpu_torch.parallel import grid_sharded as gs
+
+    t_phase = time.perf_counter()
+    f = FLAGSHIP
+    dims, n_chunks = (f["x"], f["y"], f["d"]), f["n"] // f["chunk"]
+    data = _flagship_rows(f["n"], f["d"])
+
+    def bits(a):
+        return np.ascontiguousarray(a, dtype=np.float32).view(np.int32)
+
+    initialize_multihost(f"file://{workdir}/grid1.store", 1, 0)
+    try:
+        require(dist.get_backend() == "nccl", f"grid (1, 1): backend {dist.get_backend()}")
+        grid = make_grid_mesh(1, 1)
+        kernels.reset_launch_counts()
+        meshed = XPySom(*dims, **FLAGSHIP_KW, mesh=grid).train(data, 2)
+        got = (meshed.quantization_error(data), meshed.topographic_error(data),
+               meshed.predict(data))
+        counts = kernels.launch_counts()
+        _expect_counts("grid (1, 1)", counts, {
+            "bmu_argmin": 4 * n_chunks, "scatter_stats": 2 * n_chunks, "bmu_top2": n_chunks})
+        single = XPySom(*dims, **FLAGSHIP_KW).train(data, 2)
+        want = (single.quantization_error(data), single.topographic_error(data),
+                single.predict(data))
+        require(np.array_equal(bits(meshed.get_weights()), bits(single.get_weights())),
+                "grid (1, 1): the codebook differs from mesh=None in bits")
+        require(got[0] == want[0] and got[1] == want[1] and np.array_equal(got[2], want[2]),
+                f"grid (1, 1): QE/TE {got[:2]} vs {want[:2]}, or predict, differ from mesh=None")
+        print(f"grid (1, 1) on NCCL: 2 epochs, QE {got[0]!r}, TE {got[1]!r} and predict bitwise "
+              f"equal to mesh=None; launches K1 {counts['bmu_argmin']}, K9 "
+              f"{counts['scatter_stats']}, K2 {counts['bmu_top2']}")
+
+        spec = single._spec
+        chunks, mask, _ = single._chunked(data)
+        w0 = XPySom(*dims, **FLAGSHIP_KW)._device_weights()
+        step = gs.make_epoch_fn_2d(spec, 10, grid)
+        center = [None]
+
+        def grid_epoch(w, c, m, t):
+            w, center[0] = step(w, c, m, t, center[0])
+            return w
+
+        steps = {"mesh=None": core.make_epoch_step(spec, 10),
+                 "data mesh, world 1": core.make_epoch_step(spec, 10, make_data_mesh()),
+                 "grid (1, 1)": grid_epoch}
+        times = {k: [] for k in steps}
+        for order in (list(steps), list(steps)[::-1]):  # in turns
+            for k in order:
+                times[k].append(_pop_epoch_ms(torch, steps[k], w0, chunks, mask))
+        print("grid (1, 1) epoch times (CUDA events, ms, median of 3 after a warm-up, two "
+              "turns): " + "; ".join(
+                  f"{k} {sorted(a)[1]:.3f} [{', '.join(f'{t:.3f}' for t in a)}], "
+                  f"{sorted(b)[1]:.3f} [{', '.join(f'{t:.3f}' for t in b)}]"
+                  for k, (a, b) in times.items())
+              + f" (at one model shard no merge runs; {card})")
+        del chunks, mask
+    finally:
+        dist.destroy_process_group()
+    phase_grid_ranks(torch, card, workdir, 4, "gloo")
+    print(f"grid phase: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return counts
+
+
+def phase_grid_ranks(torch, card, workdir, world, backend):
+    """``world`` ranks of ``chip_smoke.py --grid-worker`` over ``backend``
+    (phase 19 (b): 4 on gloo on the one card; ``--dist-cards 4``: 4 on
+    NCCL, one a card), held against one process's run on the same data and
+    each other. Bitwise: every rank's results against the others', the
+    (2, 2) grid against a 2-rank data mesh, a (1, k) grid against one
+    process (training and ``predict``), a grid's winners against one
+    process's on the same codebook; QE within 1e-6, TE exact, and the
+    (2, 2) grid's epochs within the epochs rule of one process's."""
+    from xpysom_dask_tpu_torch import XPySom
+
+    f = FLAGSHIP
+    dims, xy = (f["x"], f["y"], f["d"]), f["x"] * f["y"]
+    data = _flagship_rows(f["n"], f["d"])
+    name = f"grid, {world} ranks on {backend}"
+    store = os.path.join(workdir, f"grid{world}{backend}")
+    os.makedirs(store)
+    single = XPySom(*dims, **FLAGSHIP_KW).train(data, 2)
+    w2, p2 = single.get_weights(), single.predict(data)
+    w1 = XPySom(*dims, **FLAGSHIP_KW).train(data, 2, iter_end=1).get_weights()
+    big = backend == "nccl" and world == 4
+    if big:
+        b = GRID_BIG
+        xb = _flagship_rows(b["n"], b["d"])
+        one = XPySom(b["x"], b["y"], b["d"], **FLAGSHIP_KW).train(xb, 1)
+        big_w1, big_te = one.get_weights(), one.topographic_error(xb)
+        del one
+    t0 = time.perf_counter()
+    logs = _run_ranks(store, world, backend, "--grid-worker", GRID_TIMEOUT_S)
+    took = time.perf_counter() - t0
+    res = []
+    for r, log in enumerate(logs):
+        line = [ln for ln in log.splitlines() if ln.startswith("grid worker ")]
+        require(line, f"{name}: rank {r} printed no result:\n{log[-4000:]}")
+        rec = json.loads(line[-1][len("grid worker "):])
+        with np.load(os.path.join(store, f"grid{r}.npz")) as z:
+            rec.update({k: z[k] for k in z.files})
+        res.append(rec)
+        for g, t in rec["grids"].items():
+            parts = [f"launches {t['launches']}"]
+            if "epoch_ms" in t:
+                parts.append("epoch " + ", ".join(f"{v:.3f}" for v in t["epoch_ms"]) + " ms")
+            if "data_mesh_epoch_ms" in t:
+                parts.append("data mesh of the same world " + ", ".join(
+                    f"{v:.3f}" for v in t["data_mesh_epoch_ms"]) + " ms")
+            if "merge_ms" in t:
+                parts.append(f"merge alone {t['merge_ms']:.4f} ms a chunk (mean of 20; its parts "
+                             + ", ".join(f"{k} {v:.4f}" for k, v in t["merge_parts_ms"].items())
+                             + f" ms), update's gather alone {t['gather_ms']:.4f} ms (mean of 10)")
+            print(f"{name}, rank {r}, grid {g}: " + "; ".join(parts) + f" (CUDA events; {card})")
+    r0 = res[0]
+    keys = [k for k in r0 if k.startswith(("w2_", "predict_", "qe_", "te_", "big_"))
+            and k not in ("w2_dm2", "w2_1x2", "predict_1x2", "big_w1")]
+    for k in keys:
+        a = np.atleast_1d(r0[k])
+        for r, rec in enumerate(res[1:], 1):
+            b = np.atleast_1d(rec[k])
+            require(a.dtype == b.dtype and np.array_equal(a.view(np.uint8), b.view(np.uint8)),
+                    f"{name}: rank {r}'s {k} differs from rank 0's in bits")
+    for k in ("w2_dm2", "w2_1x2", "predict_1x2"):
+        require(np.array_equal(res[1][k].view(np.uint8), r0[k].view(np.uint8)),
+                f"{name}: rank 1's {k} differs from rank 0's in bits")
+    require(np.array_equal(r0["w2_2x2"].view(np.int32), r0["w2_dm2"].view(np.int32)),
+            f"{name}: the (2, 2) grid's codebook differs from the 2-rank data mesh's in bits: "
+            f"max|dw| {np.abs(r0['w2_2x2'] - r0['w2_dm2']).max():.3g}")
+    for g in [g for g in ("1x2", "1x4") if f"w2_{g}" in r0]:
+        require(np.array_equal(r0[f"w2_{g}"].view(np.int32), w2.view(np.int32)),
+                f"{name}: the ({g[0]}, {g[2]}) grid's codebook differs from one process's in "
+                f"bits: max|dw| {np.abs(r0[f'w2_{g}'] - w2).max():.3g}")
+        require(np.array_equal(r0[f"predict_{g}"], p2),
+                f"{name}: the ({g[0]}, {g[2]}) grid's winners differ from one process's")
+
+    require(np.allclose(r0["w1_2x2"], w1, rtol=EPOCH_RTOL, atol=EPOCH_ATOL),
+            f"{name}: the (2, 2) grid's epoch 0 beyond the epochs tolerance of one process's")
+
+    def flips():
+        a = XPySom.from_numpy(r0["w1_2x2"], **FLAGSHIP_KW).predict(data)
+        b = XPySom.from_numpy(w1, **FLAGSHIP_KW).predict(data)
+        return _search_flips(f"{name}, (2, 2) epoch 1 vs one process", data, w1.reshape(xy, -1),
+                             a, b)
+
+    _held_epoch(f"{name}, (2, 2) vs one process, 2 epochs", r0["w2_2x2"], w2, flips)
+    same = XPySom.from_numpy(r0["w2_2x2"], **FLAGSHIP_KW)
+    require(np.array_equal(r0["predict_2x2"], same.predict(data)),
+            f"{name}: the (2, 2) grid's winners differ from one process's on the same codebook")
+    qe, te = same.quantization_error(data), same.topographic_error(data)
+    require(abs(float(r0["qe_2x2"]) - qe) <= 1e-6 * qe and float(r0["te_2x2"]) == te,
+            f"{name}: QE/TE {float(r0['qe_2x2'])!r}, {float(r0['te_2x2'])!r} vs one "
+            f"process's {qe!r}, {te!r} on the same codebook")
+    msg = ""
+    if big:
+        require(str(r0["big_sha"]) == _sha(r0["big_w1"]), f"{name}: rank 0's big codebook hash")
+        require(np.array_equal(r0["big_w1"].view(np.int32), big_w1.view(np.int32)),
+                f"{name}: the 512 x 512 x 64 epoch at (1, 4) differs from one card's in bits: "
+                f"max|dw| {np.abs(r0['big_w1'] - big_w1).max():.3g}")
+        require(float(r0["big_te"]) == big_te,
+                f"{name}: the 512 x 512 x 64 TE {float(r0['big_te'])!r} vs one card's {big_te!r}")
+        msg = f"; 512 x 512 x 64 at (1, 4): epoch and TE ({big_te!r}) bitwise one card's"
+    print(f"{name}: every result bitwise equal across the ranks; (2, 2) bitwise the 2-rank data "
+          f"mesh, max|dw| {np.abs(r0['w2_2x2'] - w2).max():.3g} against one process; "
+          f"(1, k) grids bitwise one process (codebook and predict); winners, QE and TE as one "
+          f"process's on the same codebook{msg}; the workers {took:.1f} s")
+
+
 # the search kernel (ptxas's name, as _kernel_name gives it; for the
 # elementwise engine the prefix of its instances) behind each kernel of the
 # record
@@ -3273,6 +3616,8 @@ def main(argv):
                       help="only the distributed ranks' phase, N ranks on NCCL, one a card")
     ap.add_argument("--dist-worker", nargs=4, metavar=("RANK", "WORLD", "BACKEND", "DIR"),
                     help="run one rank of the distributed phase (started by the phase itself)")
+    ap.add_argument("--grid-worker", nargs=4, metavar=("RANK", "WORLD", "BACKEND", "DIR"),
+                    help="run one rank of the grid phase (started by the phase itself)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -3289,6 +3634,9 @@ def main(argv):
     if args.dist_worker:
         rank, world, backend, store = args.dist_worker
         return dist_worker(int(rank), int(world), backend, store)
+    if args.grid_worker:
+        rank, world, backend, store = args.grid_worker
+        return grid_worker(int(rank), int(world), backend, store)
     smi = phase_card(torch)
     if args.dist_cards:
         require(torch.cuda.device_count() >= args.dist_cards,
@@ -3297,6 +3645,7 @@ def main(argv):
         workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=_build_root(xpysom_dask_tpu_torch))
         try:
             phase_ranks(torch, smi, workdir, args.dist_cards, "nccl")
+            phase_grid_ranks(torch, smi, workdir, args.dist_cards, "nccl")
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         return 0
@@ -3343,6 +3692,7 @@ def main(argv):
         phase_streaming(torch, smi, workdir)
         phase_population(torch, smi, workdir)
         phase_distributed(torch, smi, workdir)
+        phase_grid(torch, smi, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     require("jax" not in sys.modules, "JAX was imported")

@@ -26,7 +26,8 @@ one.
 
 Data parallel on the card: a world of one process on NCCL
 (``mesh='auto'``) trains two flagship epochs bit for bit as ``mesh=None``
-does, and scores alike."""
+does, and scores alike; so does a (1, 1) (data, model) grid on NCCL
+(codebook sharding at one shard)."""
 
 import numpy as np
 import pytest
@@ -187,5 +188,27 @@ def test_world_of_one_on_nccl_is_the_single_device_path(card, tmp_path):
         np.testing.assert_array_equal(meshed.predict(data), single.predict(data))
         assert meshed.quantization_error(data) == single.quantization_error(data)
         assert meshed.topographic_error(data) == single.topographic_error(data)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_one_by_one_grid_on_nccl_is_the_single_device_path(card, tmp_path):
+    import torch.distributed as dist
+
+    from xpysom_dask_tpu_torch.parallel import GridMesh, initialize_multihost, make_grid_mesh
+
+    data = np.random.RandomState(0).rand(1 << 19, 64).astype(np.float32)
+    kw = dict(sigma=64, sigmaN=1, learning_rate=0.5, learning_rateN=0.01, random_seed=0)
+    initialize_multihost(f"file://{tmp_path}/store", 1, 0)
+    try:
+        assert dist.get_backend() == "nccl"
+        grid = XPySom(128, 128, 64, **kw, mesh=make_grid_mesh(1, 1)).train(data, 2)
+        assert isinstance(grid._mesh, GridMesh) and grid._device.type == "cuda"
+        single = XPySom(128, 128, 64, **kw).train(data, 2)
+        np.testing.assert_array_equal(grid.get_weights().view(np.int32),
+                                      single.get_weights().view(np.int32))
+        np.testing.assert_array_equal(grid.predict(data), single.predict(data))
+        assert grid.quantization_error(data) == single.quantization_error(data)
+        assert grid.topographic_error(data) == single.topographic_error(data)
     finally:
         dist.destroy_process_group()

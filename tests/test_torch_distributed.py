@@ -273,9 +273,12 @@ def test_resolve_mesh_cases(ranks):
     assert port_mesh.resolve_mesh(m) is m
     with pytest.raises(ValueError, match="initialize_multihost.*torchrun"):
         port_mesh.resolve_mesh(2, "cpu")
-    for grid in ((2, 2), type("Grid", (), {"axis_names": ("data", "model")})()):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-            port_mesh.resolve_mesh(grid, "cpu")
+    # a (data, model) grid: a pair needs its n_data * n_model processes, and
+    # a JAX mesh cannot drive the port (tests/test_torch_grid_sharded.py)
+    with pytest.raises(ValueError, match="needs 4 processes.*torchrun"):
+        port_mesh.resolve_mesh((2, 2), "cpu")
+    with pytest.raises(TypeError, match="make_grid_mesh"):
+        port_mesh.resolve_mesh(type("Grid", (), {"axis_names": ("data", "model")})(), "cpu")
     with pytest.raises(TypeError):
         port_mesh.resolve_mesh(3.5, "cpu")
     # across two processes: an int other than the world size names the launchers

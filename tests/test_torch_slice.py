@@ -224,19 +224,23 @@ def test_unported_options_raise(kwargs):
     """Hexagonal grids, every precision mode and data-parallel training are
     served: ``use_dask=True`` maps to ``mesh='auto'`` with the JAX
     package's warning, whatever the other options (a world of one here);
-    a (data, model) grid mesh still raises naming its item."""
+    a (data, model) grid mesh is served too, and in a world of one a grid
+    of four raises naming the processes to start
+    (``tests/test_torch_grid_sharded.py`` runs grids across processes)."""
     XPySom(4, 4, 3, device="cpu", **{k: v for k, v in kwargs.items() if k != "use_dask"})
     with pytest.warns(UserWarning, match="use_dask is deprecated: mapping to mesh='auto'"):
         som = XPySom(4, 4, 3, device="cpu", **dict(kwargs, use_dask=True))
     assert som._mesh.world == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
+    assert XPySom(4, 4, 3, device="cpu", mesh=(1, 1), **kwargs)._mesh.n_model == 1
+    with pytest.raises(ValueError, match="needs 4 processes and its process group has 1"):
         XPySom(4, 4, 3, device="cpu", mesh=(2, 2), **kwargs)
 
 
 def test_unported_methods_and_inputs_raise(tmp_path, capsys):
     """What ROADMAP Queue 1 items 7 and 9 ported now runs (checkpoints,
     ``verbose``, ``get_neig_functions``, ``autotune_kernel``, a streamed
-    source); codebook sharding (item 11) still raises naming its item."""
+    source); so does codebook sharding (item 11), whose grid must have
+    its processes."""
     from xpysom_dask_tpu_torch.parallel.pipeline import ArraySource
 
     som = XPySom(4, 4, 3, device="cpu")
@@ -253,7 +257,7 @@ def test_unported_methods_and_inputs_raise(tmp_path, capsys):
     som.train(data, 2, checkpoint_path=tmp_path / "ck.npz", checkpoint_every=1)
     assert XPySom.load_checkpoint(tmp_path / "ck.npz", device="cpu")._checkpoint_epoch == 2
     np.testing.assert_array_equal(som.predict(ArraySource(data)), som.predict(data))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
+    with pytest.raises(ValueError, match="needs 2 processes.*torchrun --nproc-per-node=2"):
         XPySom(4, 4, 3, device="cpu", mesh=(1, 2))
 
 

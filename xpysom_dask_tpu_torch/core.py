@@ -241,21 +241,30 @@ class _MatrixSearch:
         return ktile.first_argmin(self.dist.flat(x, self.w, self.w_sq))
 
 
-def _searcher(spec: SomSpec, dist: DistanceFunction, w_flat):
+def _centers(dist: DistanceFunction) -> bool:
+    """True where the search under ``dist`` centres both sides by a mean
+    (the euclidean GEMM form and the even-p expansion)."""
+    return _kernel_bmu_kind(dist) in ("euclidean", "norm_p_even")
+
+
+def _searcher(spec: SomSpec, dist: DistanceFunction, w_flat, center=None):
     """The codebook side of the BMU search under ``dist``, built once per
     epoch (or scoring call) and shared by every chunk: an object with
     ``argmin(x, use_kernels) -> (idx, val)``. The routes of the JAX core's
     ``_bmu_chunk``; ``dist`` is passed apart from the spec because QE
     searches by euclidean distance whatever the activation, under the
-    spec's mode."""
+    spec's mode. ``center`` (a (D,) tensor) replaces the codebook's own
+    mean where the search centres (:func:`_centers`): a codebook shard
+    passes the full codebook's."""
     kind = _kernel_bmu_kind(dist)
     mode = spec.bmu_precision
+    own = True if center is None else center
     if kind == "euclidean":
-        return kbmu.PackedCodebook(w_flat, mode)
+        return kbmu.PackedCodebook(w_flat, mode, center=own)
     if kind == "cosine":
         return kbmu.cosine_codebook(w_flat, mode)
     if kind == "norm_p_even":
-        return kbmu.NormPEvenCodebook(w_flat, dist.kwargs.get("p", 2), mode)
+        return kbmu.NormPEvenCodebook(w_flat, dist.kwargs.get("p", 2), mode, center=own)
     if kind == "manhattan":
         return kel.ElementwiseCodebook(w_flat, kind)
     if kind in ("norm_p_odd", "norm_p_frac"):

@@ -29,6 +29,15 @@ an epoch, so every rank holds the same codebook; ``winner``/``predict``
 gather every rank's winners, QE and TE reduce their sums. Every rank must
 make the same calls with the same resident data; a streamed source is
 each rank's own (training only).
+
+Codebook sharding (``mesh=`` a (data, model) grid: ``make_grid_mesh``, a
+``(n_data, n_model)`` pair or a ``DeviceMesh`` named ``('data',
+'model')``): ``n_data × n_model`` processes, one a card. Each rank holds
+its X-slice of the codebook and the chunks of its data index
+(``parallel.grid_sharded``); training, ``winner``/``predict``, QE, TE
+(on one device where a shard would hold fewer than two rows), streamed
+training and checkpoints run over it, and every rank ends ``train`` with
+the full codebook, gathered over its model group.
 """
 
 from __future__ import annotations
@@ -46,7 +55,9 @@ from .. import core
 from ..core import SomSpec, chunk_data
 from ..ops.decays import DECAY_REGISTRY
 from ..ops.distances import DistanceFunction, euclidean_distance, manhattan_distance_no_opt
+from ..parallel import grid_sharded
 from ..parallel.mesh import (
+    GridMesh,
     fetch_global,
     mesh_spans_processes,
     put_with_sharding,
@@ -73,7 +84,10 @@ def _chunks_on(data2d: np.ndarray, chunk: int, mesh, device):
     the chunks and mask on ``device``; with a mesh, the chunk count padded
     to a multiple of the world size (the last rank's extra chunks fully
     masked: their statistics are exact zeros) and only this rank's block
-    uploaded, on the rank's device."""
+    uploaded, on the rank's device. Over a grid the blocks are the data
+    indices': every rank of a model group gets the same one."""
+    if isinstance(mesh, GridMesh):
+        mesh = mesh.data
     chunks, mask, n = chunk_data(data2d, chunk, multiple_of=1 if mesh is None else mesh.world)
     return put_with_sharding(chunks, mesh, device), put_with_sharding(mask, mesh, device), n
 
@@ -140,8 +154,11 @@ class XPySom:
             the processes of a process group, one process per card:
             'auto' (or True) is the default group (a world of 1 when none
             is initialized), an int must equal its world size, a group is
-            used as given; a (data, model) grid raises
-            NotImplementedError (codebook sharding is not ported yet).
+            used as given. A (data, model) grid shards the codebook:
+            ``parallel.make_grid_mesh(n_data, n_model)``, an
+            ``(n_data, n_model)`` pair (the default group, which must hold
+            ``n_data * n_model`` processes) or a ``DeviceMesh`` named
+            ``('data', 'model')``; X must divide by ``n_model``.
             ``use_dask=True`` maps to mesh='auto' with a warning.
 
         use_kernels : bool (default True). False runs the plain PyTorch
@@ -294,12 +311,14 @@ class XPySom:
     def __getstate__(self):
         """Pickle support: drop the resolved device and the mesh, keep the
         device the caller gave and the mesh argument, a process group as
-        its world size (the JAX package drops its device handles and keeps
-        a mesh's device count likewise)."""
+        its world size and a grid as ``(n_data, n_model)`` (the JAX package
+        drops its device handles and keeps a mesh's shape likewise)."""
         state = self.__dict__.copy()
         state["_resolved_device"] = None
         state["_mesh"] = None
-        if self._mesh is not None and not isinstance(self._mesh_arg, (bool, str, int)):
+        if self._is_grid:
+            state["_mesh_arg"] = (self._mesh.n_data, self._mesh.n_model)
+        elif self._mesh is not None and not isinstance(self._mesh_arg, (bool, str, int)):
             state["_mesh_arg"] = self._mesh.world
         return state
 
@@ -314,6 +333,10 @@ class XPySom:
             self._mesh = self._mesh_arg = None
         if self._mesh is not None:
             self._resolved_device = self._mesh.device
+
+    @property
+    def _is_grid(self) -> bool:
+        return isinstance(self._mesh, GridMesh)
 
     @property
     def _spec(self) -> SomSpec:
@@ -356,9 +379,25 @@ class XPySom:
         return _chunks_on(data2d, chunk, self._mesh, self._device)
 
     def _device_weights(self):
-        return torch.from_numpy(np.asarray(self._weights, dtype=np.float32)).to(
-            self._device
-        )
+        """The codebook as f32 on the device; over a grid, this rank's
+        X-slice."""
+        w = np.asarray(self._weights, dtype=np.float32)
+        if self._is_grid:
+            n_model = self._mesh.n_model
+            if self._x % n_model:
+                raise ValueError(
+                    f"grid X={self._x} must divide evenly over {n_model} "
+                    f"model shards (codebook shards along X)"
+                )
+            w = np.ascontiguousarray(grid_sharded.local_slice(w, self._mesh))
+        return torch.from_numpy(w).to(self._device)
+
+    def _to_host(self, w) -> np.ndarray:
+        """The full codebook on the host from the device's (over a grid,
+        this rank's X-slice: gathered over the model group)."""
+        if self._is_grid:
+            w = grid_sharded.gather_codebook(w, self._mesh)
+        return w.cpu().numpy()
 
     def get_weights(self):
         """Returns the weights of the neural network (numpy)."""
@@ -478,9 +517,16 @@ class XPySom:
         if data2d.shape[0] == 0:
             return np.empty(0, dtype=np.int64)
         chunks, _, n = self._chunked(data2d)
-        bmu = core.make_bmu_fn(spec or self._spec, self._mesh)(self._device_weights(), chunks)
-        # every rank's winners, in rank order, on every rank
-        return fetch_global(bmu, self._mesh).reshape(-1)[:n].cpu().numpy()
+        if self._is_grid:
+            bmu = grid_sharded.make_bmu_fn_2d(spec or self._spec, self._mesh)(
+                self._device_weights(), chunks)
+            # every data index's winners, in order, on every rank
+            bmu = fetch_global(bmu, self._mesh.data)
+        else:
+            bmu = core.make_bmu_fn(spec or self._spec, self._mesh)(self._device_weights(), chunks)
+            # every rank's winners, in rank order, on every rank
+            bmu = fetch_global(bmu, self._mesh)
+        return bmu.reshape(-1)[:n].cpu().numpy()
 
     def winner(self, x):
         """Coordinates of the winning neurons for samples x."""
@@ -531,7 +577,9 @@ class XPySom:
         With a mesh, every rank calls ``train`` with the same resident data
         (each trains on its block of the chunks) or with its own source
         (``ShardedFileSource`` reads ``files[rank::world]``); every rank
-        ends with the same codebook, and rank 0 writes the checkpoints."""
+        ends with the same codebook, and rank 0 writes the checkpoints.
+        Over a grid each rank trains its X-slice on its data index's
+        chunks and every rank ends with the full codebook."""
         if checkpoint_every < 0:
             raise ValueError(f"checkpoint_every={checkpoint_every} must be >= 0")
         if iter_end is None:
@@ -554,14 +602,16 @@ class XPySom:
             data2d = _as_numpy_2d(data)
             self._check_input_len(data2d)
             chunks, mask, n = self._chunked(data2d)
-            train_fn = core.make_train_fn(self._spec, num_epochs, self._mesh)
+            if self._is_grid:
+                train_fn = grid_sharded.make_train_fn_2d(self._spec, num_epochs, self._mesh)
+            else:
+                train_fn = core.make_train_fn(self._spec, num_epochs, self._mesh)
             w = self._device_weights()
 
             def run(w, beg, end, progress):
                 return train_fn(w, chunks, mask, beg, end, progress)
 
-            def to_host(w):
-                return w.cpu().numpy()
+            to_host = self._to_host
 
         progress = None
         if verbose:
@@ -640,9 +690,11 @@ class XPySom:
             warn("quantization_error: received no rows.")
             return float("nan")
         chunks, mask, _ = self._chunked(data2d)
-        tot, n = core.make_quantization_stats_fn(self._spec, self._mesh)(
-            self._device_weights(), chunks, mask
-        )
+        if self._is_grid:
+            fn = grid_sharded.make_quantization_stats_fn_2d(self._spec, self._mesh)
+        else:
+            fn = core.make_quantization_stats_fn(self._spec, self._mesh)
+        tot, n = fn(self._device_weights(), chunks, mask)
         return float(tot) / float(n)
 
     @property
@@ -670,10 +722,21 @@ class XPySom:
         if data2d.shape[0] == 0:
             warn("topographic_error: received no rows.")
             return float("nan")
+        if self._is_grid and self._x * self._y // self._mesh.n_model < 2:
+            # fewer than two rows a shard leave the sharded top-2 merge
+            # undefined: every rank scores on its device from the host
+            # codebook, as the JAX package falls back to one device
+            chunk = training_chunk(data2d.shape[0], self._te_chunk or self._n_parallel)
+            chunks, mask, _ = _chunks_on(data2d, chunk, None, self._device)
+            w = torch.from_numpy(np.asarray(self._weights, dtype=np.float32)).to(self._device)
+            errs, n = core.make_topographic_stats_fn(self._spec)(w, chunks, mask)
+            return float(errs) / float(n)
         chunks, mask, _ = self._chunked(data2d, self._te_chunk)
-        errs, n = core.make_topographic_stats_fn(self._spec, self._mesh)(
-            self._device_weights(), chunks, mask
-        )
+        if self._is_grid:
+            fn = grid_sharded.make_topographic_stats_fn_2d(self._spec, self._mesh)
+        else:
+            fn = core.make_topographic_stats_fn(self._spec, self._mesh)
+        errs, n = fn(self._device_weights(), chunks, mask)
         return float(errs) / float(n)
 
     # -- weight initialization --------------------------------------------------
@@ -875,7 +938,8 @@ class XPySom:
         ``reps`` calls (CUDA events) and first-call time (host clock,
         synchronized), or None with a warning where this SOM runs no
         kernel (on the CPU, with ``use_kernels=False``, or under an
-        activation without one)."""
+        activation without one). Over a grid it times the search over this
+        rank's shard, the nodes a shard holds."""
         spec = self._spec
         dist = spec.distance_fn()
         if self._device.type != "cuda" or core._kernel_bmu_kind(dist, self._use_kernels) is None:
@@ -885,12 +949,7 @@ class XPySom:
                 "to tune; returning None"
             )
             return None
-        chunk = training_chunk(
-            int(n_samples) if n_samples is not None else self._n_parallel, self._n_parallel
-        )
-        gen = torch.Generator(device=self._device).manual_seed(0)
-        x = torch.rand((chunk, self._input_len), generator=gen, device=self._device)
-        w_flat = self._device_weights().reshape(spec.xy, self._input_len)
+        x, w_flat = self._tune_operands(n_samples)
         torch.cuda.synchronize(self._device)
         t0 = time.perf_counter()
         search = core._searcher(spec, dist, w_flat)
@@ -906,6 +965,18 @@ class XPySom:
         torch.cuda.synchronize(self._device)
         return TuneResult(tiles=None, timings_ms={None: start.elapsed_time(end) / reps},
                           first_call_s={None: first})
+
+    def _tune_operands(self, n_samples=None):
+        """``autotune_kernel``'s operands on the device: uniform samples of
+        training's chunk (``utils.hw.training_chunk``) from a fixed seed,
+        and the codebook rows training searches (over a grid, this rank's
+        shard)."""
+        chunk = training_chunk(
+            int(n_samples) if n_samples is not None else self._n_parallel, self._n_parallel
+        )
+        gen = torch.Generator(device=self._device).manual_seed(0)
+        x = torch.rand((chunk, self._input_len), generator=gen, device=self._device)
+        return x, self._device_weights().reshape(-1, self._input_len)
 
     def save_checkpoint(self, path, *, epoch=None):
         """Portable .npz checkpoint (codebook + RNG + config header) in the

@@ -684,6 +684,18 @@ def bmu_highest(x, w, w_sq):
 bmu_highest.launches = 0
 
 
+def _centered_codebook(w_flat, center):
+    """``(c, w − c)`` for ``center`` True (the codebook's own mean,
+    :func:`center_by_mean`) or a given (D,) centre; ``(None, w)`` for
+    False or None."""
+    if center is None or center is False:
+        return None, w_flat
+    if center is True:
+        return center_by_mean(w_flat)
+    c = center.float()
+    return c, w_flat - c[None, :]
+
+
 def center_by_mean(w_flat):
     """``(c, w − c)``: the codebook mean ``c`` (D,) and the centered f32
     codebook. Subtracting ``c`` from both sides leaves every euclidean and
@@ -758,9 +770,12 @@ class PackedCodebook:
     epoch or scoring call and shared by every chunk.
 
     ``center=True`` subtracts the codebook mean from both sides
-    (:func:`center_by_mean`). ``w_sq`` overrides the ``‖w‖²`` operand with
-    caller-defined semantics (the JAX package's ``w_sq_raw=True``): cosine
-    and the norm_p expansion pass zeros, and ``'split2'`` then splits that
+    (:func:`center_by_mean`); a (D,) tensor subtracts that centre instead
+    (a codebook shard takes the full codebook's mean, so that its values
+    are the full search's, comparable across shards); False none.
+    ``w_sq`` overrides the ``‖w‖²`` operand with caller-defined semantics
+    (the JAX package's ``w_sq_raw=True``): cosine and the norm_p
+    expansion pass zeros, and ``'split2'`` then splits that
     operand instead of using the rounded codebook's norm. On the card the
     wgmma searches (K1, K2, K1-kb, K3) read the codebook laid out once per
     object (:meth:`laid`) and the samples packed and laid out in one
@@ -772,7 +787,7 @@ class PackedCodebook:
         w_flat = w_flat.float()
         self.xy = w_flat.shape[0]
         self.mode = mode
-        self.center, w_c = center_by_mean(w_flat) if center else (None, w_flat)
+        self.center, w_c = _centered_codebook(w_flat, center)
         raw = None if w_sq is None else w_sq.float().reshape(self.xy).contiguous()
         self.w_sq = torch.sum(w_c * w_c, dim=1) if raw is None else raw
         if mode in _AUG_MODES:
@@ -929,9 +944,10 @@ class NormPEvenCodebook:
     a zero ``‖w‖²`` the kernel computes exactly ``φ·ψ``. Both sides are
     centered by the codebook mean first: the expansion cancels
     catastrophically and centering shrinks every term, which is also why
-    the default mode is ``'highest'``."""
+    the default mode is ``'highest'``. ``center`` (a (D,) tensor) replaces
+    the codebook's own mean, as :class:`PackedCodebook`'s does."""
 
-    def __init__(self, w_flat, p=2, mode="highest"):
+    def __init__(self, w_flat, p=2, mode="highest", center=True):
         if not float(p).is_integer() or int(p) % 2 != 0 or int(p) < 2:
             raise ValueError("p must be even and >= 2")
         if mode == "margin":
@@ -940,7 +956,7 @@ class NormPEvenCodebook:
                 "use 'highest' (the default)"
             )
         self.p = int(p)
-        self.center, wc = center_by_mean(w_flat)
+        self.center, wc = _centered_codebook(w_flat.float(), center)
         psi = torch.cat([cf * wc**e for e, cf in enumerate(_binomial_coeffs(self.p))], dim=1)
         zeros = torch.zeros(wc.shape[0], dtype=_F32, device=wc.device)
         self._gemm = PackedCodebook(-0.5 * psi, mode, center=False, w_sq=zeros)

@@ -1,14 +1,16 @@
-"""Distribution layer of the port: data-parallel process groups (counterpart
-of ``xpysom_dask_tpu/parallel/mesh.py``) and the streaming pipeline
-(``xpysom_dask_tpu/parallel/pipeline.py``). Codebook-sharded training
-(``grid_sharded.py``) is ROADMAP Queue 1 item 11."""
+"""Distribution layer of the port: data-parallel process groups and (data,
+model) grids (counterpart of ``xpysom_dask_tpu/parallel/mesh.py``),
+codebook-sharded training and scoring (``grid_sharded.py``) and the
+streaming pipeline (``xpysom_dask_tpu/parallel/pipeline.py``)."""
 
 from .mesh import (
     DataMesh,
+    GridMesh,
     all_reduce_sum,
     fetch_global,
     initialize_multihost,
     make_data_mesh,
+    make_grid_mesh,
     mesh_spans_processes,
     put_with_sharding,
     resolve_mesh,
@@ -27,8 +29,10 @@ from .pipeline import (
 
 __all__ = [
     "DataMesh",
+    "GridMesh",
     "initialize_multihost",
     "make_data_mesh",
+    "make_grid_mesh",
     "resolve_mesh",
     "mesh_spans_processes",
     "put_with_sharding",

@@ -18,7 +18,17 @@ What the user's ``mesh=`` means (:func:`resolve_mesh`):
   is initialized);
 - an int ``k``: the default process group, which must have ``k`` ranks;
 - a ``torch.distributed.ProcessGroup``: used as it is;
-- a (data, model) grid: codebook sharding, not ported yet.
+- a (data, model) grid (codebook sharding, ``parallel.grid_sharded``): a
+  :class:`GridMesh`, a ``(n_data, n_model)`` pair (:func:`make_grid_mesh`
+  over the default group) or a ``torch.distributed`` ``DeviceMesh`` whose
+  dimensions are named ``('data', 'model')``.
+
+A :class:`GridMesh` lays the world's ``n_data × n_model`` processes out
+row-major, rank ``r`` at ``(r // n_model, r % n_model)`` (JAX's
+``reshape(n_data, n_model)`` of the device list), and holds two
+sub-meshes, each a :class:`DataMesh` of its own group: ``model``, the
+ranks of this data index (the codebook's shards), and ``data``, the ranks
+of this model index (the data's shards).
 
 Gloo on CUDA tensors offers ``broadcast`` and ``all_reduce`` only, so
 every collective here is an ``all_reduce``: a count is a MAX of one
@@ -42,8 +52,10 @@ from ..utils.hw import resolve_device
 
 __all__ = [
     "DataMesh",
+    "GridMesh",
     "initialize_multihost",
     "make_data_mesh",
+    "make_grid_mesh",
     "resolve_mesh",
     "is_grid_mesh",
     "mesh_spans_processes",
@@ -78,6 +90,35 @@ class DataMesh:
         backend = dist.get_backend(self.group) if dist.is_initialized() else None
         return (
             f"DataMesh(rank={self.rank}, world={self.world}, "
+            f"backend={backend!r}, device={str(self.device)!r})"
+        )
+
+
+@dataclass(frozen=True, eq=False)
+class GridMesh:
+    """A (data, model) grid of ``n_data × n_model`` processes, one a card:
+    ``group`` joins them all (None: the default group, or a world of one
+    without ``torch.distributed``), this process's grid ``rank`` at
+    ``(rank // n_model, rank % n_model)``, the ``world`` size and the
+    process's ``device``; ``model`` is the :class:`DataMesh` of the ranks
+    with this data index (its rank is the model index), ``data`` the one of
+    the ranks with this model index (its rank is the data index). The
+    whole-grid fields let the data mesh's helpers (``barrier``,
+    ``agree_max``, ``fetch_global``) run over every rank."""
+
+    group: Optional[object]
+    rank: int
+    world: int
+    device: torch.device
+    n_data: int
+    n_model: int
+    data: DataMesh
+    model: DataMesh
+
+    def __repr__(self):
+        backend = dist.get_backend(self.group) if dist.is_initialized() else None
+        return (
+            f"GridMesh(rank={self.rank}, n_data={self.n_data}, n_model={self.n_model}, "
             f"backend={backend!r}, device={str(self.device)!r})"
         )
 
@@ -161,28 +202,124 @@ def make_data_mesh(n_processes: Optional[int] = None, group=None, device=None) -
     return DataMesh(group, rank, world, _rank_device(global_rank, device))
 
 
+# the sub-groups of each grid made so far, keyed by the grid's group (kept
+# alive so its id is not reused) and shape: every rank builds the same
+# grids in the same order, so every rank finds or makes the same groups
+_GRID_GROUPS = {}
+
+
+def _grid_groups(group, n_data, n_model):
+    """``(model_groups, data_groups)`` of a grid over ``group``: one group
+    a data index (its ``n_model`` ranks) and one a model index (its
+    ``n_data`` ranks), made with ``dist.new_group`` on every rank in the
+    same order, once a grid."""
+    parent = dist.group.WORLD if group is None else group
+    key = (id(parent), n_data, n_model)
+    if key not in _GRID_GROUPS:
+        members = dist.get_process_group_ranks(parent)
+        model = [dist.new_group([members[i * n_model + j] for j in range(n_model)])
+                 for i in range(n_data)]
+        data = [dist.new_group([members[i * n_model + j] for i in range(n_data)])
+                for j in range(n_model)]
+        _GRID_GROUPS[key] = (parent, model, data)
+    return _GRID_GROUPS[key][1:]
+
+
+def make_grid_mesh(n_data: int, n_model: int, group=None, device=None) -> GridMesh:
+    """The (data, model) grid over ``group`` (default: the default process
+    group; a world of 1 when ``torch.distributed`` is not initialized),
+    which must hold exactly ``n_data * n_model`` processes, one a card.
+    A grid with one row or one column uses ``group`` itself for its long
+    side and no group for the other (one rank: no collective runs there).
+    A grid with both sizes above one makes its sub-groups with
+    ``dist.new_group``, which every rank of the default group enters: it
+    is built over the default group, by every rank, in the same order as
+    the other grids."""
+    n_data, n_model = int(n_data), int(n_model)
+    if n_data < 1 or n_model < 1:
+        raise ValueError(f"grid ({n_data}, {n_model}): both sizes must be >= 1")
+    need = n_data * n_model
+    if dist.is_available() and dist.is_initialized():
+        rank, world = dist.get_rank(group), dist.get_world_size(group)
+        global_rank = dist.get_rank()
+    elif group is not None:
+        raise ValueError("a process group needs torch.distributed to be initialized")
+    else:
+        rank, world, global_rank = 0, 1, 0
+    if world != need:
+        raise ValueError(
+            f"mesh=({n_data}, {n_model}): a grid runs one process per card, so it "
+            f"needs {need} processes and its process group has {world}; start "
+            f"{need} processes (initialize_multihost, or torchrun "
+            f"--nproc-per-node={need})"
+        )
+    dev = _rank_device(global_rank, device)
+    i, j = divmod(rank, n_model)
+    whole, alone = DataMesh(group, rank, world, dev), DataMesh(None, 0, 1, dev)
+    if n_model == 1:
+        return GridMesh(group, rank, world, dev, n_data, 1, data=whole, model=alone)
+    if n_data == 1:
+        return GridMesh(group, rank, world, dev, 1, n_model, data=alone, model=whole)
+    if group is not None and world != dist.get_world_size():
+        raise ValueError(
+            f"mesh=({n_data}, {n_model}): a grid of both sizes above one is built "
+            "over the default process group (every rank enters dist.new_group)")
+    model_groups, data_groups = _grid_groups(group, n_data, n_model)
+    return GridMesh(group, rank, world, dev, n_data, n_model,
+                    data=DataMesh(data_groups[j], i, n_data, dev),
+                    model=DataMesh(model_groups[i], j, n_model, dev))
+
+
+def _grid_of_device_mesh(mesh, device=None) -> GridMesh:
+    """A :class:`GridMesh` over a ``DeviceMesh`` named ``('data',
+    'model')``, its own sub-groups; its ranks are placed row-major by
+    their ``(data, model)`` coordinates."""
+    names = tuple(mesh.mesh_dim_names)
+    n_data, n_model = (int(mesh.size(names.index(a))) for a in ("data", "model"))
+    i, j = mesh.get_local_rank("data"), mesh.get_local_rank("model")
+    members = sorted(int(r) for r in mesh.mesh.flatten().tolist())
+    group = None if len(members) == dist.get_world_size() else dist.new_group(members)
+    dev = _rank_device(dist.get_rank(), device)
+    return GridMesh(group, i * n_model + j, n_data * n_model, dev, n_data, n_model,
+                    data=DataMesh(mesh.get_group("data"), i, n_data, dev),
+                    model=DataMesh(mesh.get_group("model"), j, n_model, dev))
+
+
 def is_grid_mesh(mesh) -> bool:
-    """True for a (data, model) grid: a pair of sizes, or a mesh object
-    whose axis names hold ``'model'`` (a JAX ``Mesh``, a torch
-    ``DeviceMesh``)."""
+    """True for a (data, model) grid: a :class:`GridMesh`, a pair of
+    sizes, or a mesh object whose axis names hold ``'model'`` (a JAX
+    ``Mesh``, a torch ``DeviceMesh``)."""
+    if isinstance(mesh, GridMesh):
+        return True
     if isinstance(mesh, (tuple, list)):
         return len(mesh) == 2
     names = getattr(mesh, "axis_names", None) or getattr(mesh, "mesh_dim_names", None) or ()
     return "model" in names
 
 
-def resolve_mesh(mesh, device=None) -> Optional[DataMesh]:
+def resolve_mesh(mesh, device=None):
     """Normalize the user-facing ``mesh`` argument (module docstring) to a
-    :class:`DataMesh` or None. ``device`` is this process's device (default:
-    its card, :func:`_rank_device`)."""
+    :class:`DataMesh`, a :class:`GridMesh` or None. ``device`` is this
+    process's device (default: its card, :func:`_rank_device`)."""
     if mesh is None or mesh is False:
         return None
-    if isinstance(mesh, DataMesh):
+    if isinstance(mesh, (DataMesh, GridMesh)):
         return mesh
     if mesh is True or (isinstance(mesh, str) and mesh == "auto"):
         return make_data_mesh(device=device)
+    if isinstance(mesh, (tuple, list)) and len(mesh) == 2:
+        return make_grid_mesh(*mesh, device=device)
     if is_grid_mesh(mesh):
-        _not_ported("a (data, model) grid mesh (codebook sharding)", 11)
+        if getattr(mesh, "mesh_dim_names", None) is not None and hasattr(mesh, "get_group"):
+            if set(mesh.mesh_dim_names) != {"data", "model"}:
+                raise ValueError(
+                    f"a DeviceMesh grid names its dimensions ('data', 'model'), got "
+                    f"{tuple(mesh.mesh_dim_names)}")
+            return _grid_of_device_mesh(mesh, device)
+        raise TypeError(
+            f"cannot interpret mesh argument {mesh!r}: a grid of the port is "
+            "make_grid_mesh(n_data, n_model), a (n_data, n_model) pair or a "
+            "torch DeviceMesh named ('data', 'model')")
     if isinstance(mesh, (int, np.integer)):
         return make_data_mesh(int(mesh), device=device)
     if dist.is_available() and isinstance(mesh, dist.ProcessGroup):

@@ -27,6 +27,17 @@ The ranks stay in step superbatch by superbatch
 (:func:`_synced_superbatches`): one ``all_reduce(MAX)`` of the row count a
 step, a rank that has run out feeding empty, fully masked superbatches
 (exact zero partials) until every rank is done.
+
+Over a (data, model) grid (``parallel.grid_sharded``) every rank of a
+model group must search the same chunks. With one process per card the
+data axis never splits evenly over the processes once ``n_model > 1``,
+so every superbatch takes the JAX package's host-gather branch: each
+rank's synced superbatch (the same chunk count on every rank) is gathered
+over the whole grid in rank order, and data index ``i`` keeps the ``i``-th
+of ``n_data`` equal blocks of the result (:func:`_grid_superbatches`).
+Each rank carries its shard's running total, all_reduced once over the
+data group at the end of the epoch; ``(n_data, 1)`` grids stream each
+rank's own source, as a data mesh does.
 """
 
 from __future__ import annotations
@@ -37,10 +48,17 @@ from typing import Iterator, Optional, Protocol
 import numpy as np
 import torch
 
-from ..core import SomSpec, chunk_data, make_stats_fn, make_update_fn
+from ..core import SomSpec, _centers, chunk_data, make_stats_fn, make_update_fn
 from ..utils.hw import resolve_device, training_chunk
 from ..utils.native import load_chunkloader
-from .mesh import agree_max, all_reduce_sum, mesh_spans_processes, process_topology
+from .mesh import (
+    GridMesh,
+    agree_max,
+    all_reduce_sum,
+    fetch_global,
+    mesh_spans_processes,
+    process_topology,
+)
 
 __all__ = [
     "DataSource",
@@ -336,6 +354,24 @@ def device_superbatches(source: DataSource, rows: int, chunk: int, device, mesh=
         yield chunks.view(c, chunk, d), mask.view(c, chunk), n
 
 
+def _grid_superbatches(source: DataSource, rows: int, chunk: int, mesh: GridMesh):
+    """Yield ``(chunks, mask)`` of this rank's data index for each
+    superbatch over a grid: every rank's synced superbatch
+    (:func:`device_superbatches`, the same chunk count on every rank)
+    gathered over the grid in rank order, then the data index's block of
+    ``n_data`` equal ones (the JAX package's host-gather branch; the
+    gathered count, ``n_data · n_model`` times a rank's, always splits
+    evenly). A grid of one model shard keeps each rank's own
+    superbatch."""
+    for chunks, mask, _ in device_superbatches(source, rows, chunk, mesh.device, mesh):
+        if mesh.n_model > 1:
+            chunks, mask = fetch_global(chunks, mesh), fetch_global(mask, mesh)
+            per = chunks.shape[0] // mesh.n_data
+            i = mesh.data.rank
+            chunks, mask = chunks[i * per : (i + 1) * per], mask[i * per : (i + 1) * per]
+        yield chunks, mask
+
+
 def stats_streaming(spec: SomSpec, w, source: DataSource, chunk: int, superbatch_rows: int,
                     stats_fn=None, mesh=None):
     """One epoch's sufficient statistics ``[S | cnt]`` ((XY, D+1) f32 on
@@ -345,11 +381,24 @@ def stats_streaming(spec: SomSpec, w, source: DataSource, chunk: int, superbatch
     return a stack of them). ``w`` is the (X, Y, D) codebook on its
     device. With a data mesh, ``source`` is this rank's own and the result
     is the sum over the ranks: each rank's running total, all_reduced
-    once."""
-    if stats_fn is None:
-        stats_fn = make_stats_fn(spec)
+    once. Over a grid, ``w`` is this rank's X-slice, the superbatches are
+    :func:`_grid_superbatches`', the default ``stats_fn`` is
+    ``grid_sharded.make_stats_fn_2d(spec, mesh, reduce=False)`` and the
+    result, this shard's rows, is all_reduced over the data group."""
+    grid = isinstance(mesh, GridMesh)
+    if grid:
+        from .grid_sharded import make_stats_fn_2d
+
+        if stats_fn is None:
+            stats_fn = make_stats_fn_2d(spec, mesh, reduce=False)
+        blocks = _grid_superbatches(source, superbatch_rows, chunk, mesh)
+    else:
+        if stats_fn is None:
+            stats_fn = make_stats_fn(spec)
+        blocks = ((c, m) for c, m, _ in
+                  device_superbatches(source, superbatch_rows, chunk, w.device, mesh))
     acc = None
-    for chunks, mask, _ in device_superbatches(source, superbatch_rows, chunk, w.device, mesh):
+    for chunks, mask in blocks:
         if chunks.shape[-1] != spec.input_len:
             raise ValueError(
                 f"Received {chunks.shape[-1]} features, expected {spec.input_len}."
@@ -357,7 +406,7 @@ def stats_streaming(spec: SomSpec, w, source: DataSource, chunk: int, superbatch
         acc = stats_fn(w, chunks, mask, acc)
     if acc is None:
         raise ValueError("empty data source")
-    return all_reduce_sum(acc, mesh)
+    return all_reduce_sum(acc, mesh.data if grid else mesh)
 
 
 def train_streaming(
@@ -385,16 +434,22 @@ def train_streaming(
     (:func:`default_superbatch_rows`); ``chunk`` is aligned as the resident
     path aligns it (``utils.hw.training_chunk``), so a superbatch that is
     a multiple of the chunk gives the resident path's chunks and its bits.
-    ``progress(t)`` is called after each epoch ``t``."""
+    ``progress(t)`` is called after each epoch ``t``. Over a grid mesh
+    every rank holds its X-slice of the codebook on the card, updates it
+    as ``grid_sharded.make_update_fn_2d`` does, and returns the full
+    codebook, gathered over its model group."""
     if iter_end is None:
         iter_end = num_epochs
     if superbatch_rows is None:
         superbatch_rows = default_superbatch_rows(getattr(source, "dim", spec.input_len))
     superbatch_rows = _check_rows(superbatch_rows)
     chunk = training_chunk(superbatch_rows, chunk)
+    host = np.ascontiguousarray(weights, dtype=np.float32)
+    if isinstance(mesh, GridMesh):
+        return _train_streaming_grid(spec, host, source, num_epochs, iter_beg, iter_end, chunk,
+                                     superbatch_rows, mesh, progress)
     stats_fn = make_stats_fn(spec)
     update_fn = make_update_fn(spec, num_epochs)
-    host = np.ascontiguousarray(weights, dtype=np.float32)
     w = torch.from_numpy(host).to(mesh.device if mesh is not None else resolve_device(device))
     for t in range(iter_beg, iter_end):
         acc = stats_streaming(spec, w, source, chunk, superbatch_rows, stats_fn, mesh)
@@ -402,3 +457,23 @@ def train_streaming(
         if progress is not None:
             progress(t)
     return w.cpu().numpy()
+
+
+def _train_streaming_grid(spec, host, source, num_epochs, iter_beg, iter_end, chunk,
+                          superbatch_rows, mesh, progress):
+    """:func:`train_streaming` over a grid mesh: each epoch's statistics of
+    this shard's rows, the centre the update hands on (gathered once at
+    the start), the full codebook gathered at the end."""
+    from . import grid_sharded as gs
+
+    stats_fn = gs.make_stats_fn_2d(spec, mesh, reduce=False)
+    update_fn = gs.make_update_fn_2d(spec, num_epochs, mesh)
+    w = gs.local_slice(torch.from_numpy(host), mesh).to(mesh.device)
+    center = gs.grid_center(w, mesh) if _centers(spec.distance_fn()) else None
+    for t in range(iter_beg, iter_end):
+        acc = stats_streaming(spec, w, source, chunk, superbatch_rows,
+                              lambda *a: stats_fn(*a, center=center), mesh)
+        w, center = update_fn(w, acc, t)
+        if progress is not None:
+            progress(t)
+    return gs.gather_codebook(w, mesh).cpu().numpy()
