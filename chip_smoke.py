@@ -143,7 +143,25 @@ Phases (each prints lines; any failure raises and exits non-zero):
      world, the per-chunk merge alone and the update's gather alone
      (CUDA events). ``--dist-cards 4`` runs (b) on NCCL, one rank a card,
      with a (1, 4) grid too and one epoch and TE of a 512 x 512 x 64 map
-     at (1, 4) on 2^17 rows, bitwise one card's.
+     at (1, 4) on 2^17 rows, bitwise one card's;
+ 20. ``utils.profiling.epoch_anatomy`` on the flagship (``phase_anatomy``),
+     euclidean and manhattan: the BMU, statistics and epoch stages (CUDA
+     events, slope over 2 and 8 back-to-back runs, best of 3) beside
+     PERF.md's predictions, every value finite, the weights bit for bit
+     as they were, and each stage's exact launches (K1 or K5 alone in the
+     BMU stage, with K9 in the other two);
+ 21. the sklearn adapter on the flagship (``phase_sklearn``, where
+     scikit-learn imports; otherwise one line says what did not run):
+     ``SomClusterer(128, 128, num_epochs=2)`` with no ``device`` bit for
+     bit a bare ``XPySom`` (``cluster_centers_``, ``labels_``,
+     ``predict``, ``score`` = -QE), ``transform`` within the f32 bound of
+     a float64 reference and its argmin ``predict`` but near-ties,
+     ``inverse_transform``, exact launches per call, and ``fit``'s host
+     wall beside the bare train + predict + QE in turns;
+ 22. every ``examples_torch/*.py`` (``phase_examples``) in a subprocess
+     of its own with no ``--device``, killed at 120 s: exit 0 and
+     ``device=cuda`` first; the scripts that need scikit-learn are named
+     and skipped where it does not import.
 Each kernel's record carries its launches on the path that runs it, its
 error against the plain version, its time, the plain version's, the time
 of one PyTorch library call that computes the same function where there
@@ -3580,6 +3598,205 @@ def phase_grid_ranks(torch, card, workdir, world, backend):
           f"process's on the same codebook{msg}; the workers {took:.1f} s")
 
 
+# epoch_anatomy's depths on the card (the JAX package's defaults): each
+# stage runs (lo + hi) times as a warm-up, then reps windows at each depth
+ANATOMY = dict(lo=2, hi=8, reps=3)
+# PERF.md's predictions (ms), written before the first run of the phase
+ANATOMY_PREDICTED = {
+    "euclidean": {"bmu_ms": (8.5, 10.5), "stats_ms": (11.0, 13.0), "epoch_ms": (11.0, 13.5)},
+    "manhattan": {"bmu_ms": (44.0, 47.0), "epoch_ms": (48.0, 51.0)},
+}
+
+
+def phase_anatomy(torch, card):
+    """``utils.profiling.epoch_anatomy`` on the flagship (phase 20 of the
+    module docstring), under euclidean (K1) and manhattan (K5): every value
+    finite, the three stages above 0 ms, the weights bit for bit as they
+    were, and each stage's exact launches. Returns the launches of both
+    runs, summed."""
+    from xpysom_dask_tpu_torch import XPySom
+    from xpysom_dask_tpu_torch.ops import kernels
+    from xpysom_dask_tpu_torch.utils.profiling import epoch_anatomy
+
+    f = FLAGSHIP
+    data = _flagship_rows(f["n"], f["d"])
+    per_stage = (ANATOMY["reps"] + 1) * (ANATOMY["lo"] + ANATOMY["hi"]) * (f["n"] // f["chunk"])
+    total = {}
+    for activation, search in (("euclidean", "bmu_argmin"), ("manhattan", "bmu_manhattan")):
+        som = XPySom(f["x"], f["y"], f["d"], **FLAGSHIP_KW, n_parallel=f["chunk"],
+                     activation_distance=activation)
+        w0 = som.get_weights().copy()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = epoch_anatomy(som, data, **ANATOMY)
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        require(np.array_equal(som.get_weights().view(np.int64), w0.view(np.int64)),
+                f"anatomy ({activation}): the model's weights changed")
+        ms = {k: v for k, v in out.items() if k.endswith("_ms")}
+        require(all(np.isfinite(v) for v in ms.values()), f"anatomy ({activation}): {ms}")
+        require(all(ms[k] > 0 for k in ("bmu_ms", "stats_ms", "epoch_ms")),
+                f"anatomy ({activation}): a stage at or below 0 ms: {ms}")
+        both = {search: per_stage, "scatter_stats": per_stage}
+        for stage, want in (("bmu", {search: per_stage}), ("stats", both), ("epoch", both)):
+            _expect_counts(f"anatomy ({activation}) {stage}", out[f"{stage}_launches"], want)
+        _expect_counts(f"anatomy ({activation})", counts, {search: 3 * per_stage,
+                                                           "scatter_stats": 2 * per_stage})
+        pred = ANATOMY_PREDICTED[activation]
+        print(f"anatomy ({activation}, {f['n']} x {f['d']} rows on {f['x']} x {f['y']}, chunk "
+              f"{f['chunk']}, CUDA events, {out['bmu_method']}): " + "; ".join(
+                  f"{k} {v!r}" + (f" (predicted {pred[k][0]}-{pred[k][1]})" if k in pred else "")
+                  for k, v in ms.items())
+              + f"; launches a stage {per_stage} ({search}, and K9 in stats and epoch); "
+              f"weights bitwise unchanged; {wall:.1f} s wall ({card})")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_sklearn(torch, card):
+    """The sklearn adapter on the flagship (phase 21 of the module
+    docstring), where scikit-learn imports: ``SomClusterer`` with no
+    ``device`` (the card) against a bare ``XPySom``, bit for bit, with
+    exact launches per call, and the host walls of ``fit`` beside the bare
+    train + predict + QE, in turns. Returns the adapter's launches (none
+    where scikit-learn is absent)."""
+    from xpysom_dask_tpu_torch import XPySom
+    from xpysom_dask_tpu_torch.ops import kernels
+
+    try:
+        from xpysom_dask_tpu_torch.sklearn import SomClusterer
+    except ImportError as exc:
+        print(f"sklearn: scikit-learn does not import on this machine ({exc}); not run: "
+              "SomClusterer fit/predict/score/transform/inverse_transform on the flagship "
+              "against a bare XPySom, their launches and walls")
+        return {}
+
+    f = FLAGSHIP
+    X = _flagship_rows(f["n"], f["d"])
+    n_chunks = f["n"] // f["chunk"]
+    kw = dict(FLAGSHIP_KW, n_parallel=f["chunk"])
+    walls = {"fit": [], "bare": []}
+    launches = {}
+
+    def counted(name, fn, want):
+        kernels.reset_launch_counts()
+        out = fn()
+        counts = kernels.launch_counts()
+        _expect_counts(f"sklearn {name}", counts, want)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        return out
+
+    def bare():
+        som = XPySom(f["x"], f["y"], f["d"], **kw).train(X, 2)
+        return som, som.predict(X), som.quantization_error(X)
+
+    def fit():
+        return SomClusterer(f["x"], f["y"], num_epochs=2, **kw).fit(X)
+
+    for turn in ("bare", "fit", "fit", "bare"):  # the first fit's launches counted
+        t = {}
+        if turn == "bare":
+            som, labels, qe = _timed(torch, t, turn, bare)
+        elif walls["fit"]:
+            est = _timed(torch, t, turn, fit)
+        else:
+            est = _timed(torch, t, turn, lambda: counted(
+                "fit", fit, {"bmu_argmin": 4 * n_chunks, "scatter_stats": 2 * n_chunks}))
+        walls[turn].append(t[turn])
+    w = som.get_weights().reshape(-1, f["d"])
+    require(np.array_equal(est.cluster_centers_.view(np.int64), w.view(np.int64)),
+            "sklearn: cluster_centers_ differ in bits from a bare XPySom's codebook")
+    require(np.array_equal(est.labels_, labels), "sklearn: labels_ differ from predict")
+    got = counted("predict", lambda: est.predict(X), {"bmu_argmin": n_chunks})
+    require(np.array_equal(got, labels), "sklearn: predict(X) differs from XPySom.predict")
+    score = counted("score", lambda: est.score(X), {"bmu_argmin": n_chunks})
+    require(score == -qe, f"sklearn: score {score!r} is not -QE {-qe!r}")
+
+    rows = min(8192, f["n"])
+    dist = counted("transform", lambda: est.transform(X[:rows]), {})
+    require(dist.shape == (rows, f["x"] * f["y"]), f"sklearn: transform shape {dist.shape}")
+    x64, w64 = X[:rows].astype(np.float64), w.astype(np.float64)
+    worst = 0.0
+    for s in range(0, rows, 1024):
+        xs = x64[s:s + 1024]
+        sq = (xs * xs).sum(1)[:, None] + (w64 * w64).sum(1)[None, :] - 2.0 * xs @ w64.T
+        # an f32 expansion of D terms errs by about (D + 2) u of its terms' size
+        tol = (f["d"] + 2) * F32_U * ((xs * xs).sum(1)[:, None] + (w64 * w64).sum(1)[None, :]
+                                      + 2.0 * np.abs(xs) @ np.abs(w64).T)
+        err = np.abs(dist[s:s + 1024].astype(np.float64) ** 2 - np.maximum(sq, 0.0))
+        worst = max(worst, float((err / tol).max()))
+    require(worst <= 1.0, f"sklearn: transform's squares beyond the f32 bound ({worst:.3g} of it)")
+    arg = dist.argmin(1)
+    center = w.mean(0, dtype=np.float32).astype(np.float64)
+    flips = np.nonzero(arg != labels[:rows])[0]
+    _check_near_ties("sklearn transform argmin", flips, x64 - center, w64 - center,
+                     arg, labels[:rows])
+    require(np.array_equal(est.inverse_transform(labels), est.cluster_centers_[labels]),
+            "sklearn: inverse_transform differs from cluster_centers_[labels]")
+    try:
+        est.inverse_transform([-1])
+    except ValueError:
+        pass
+    else:
+        raise RuntimeError("sklearn: inverse_transform(-1) did not raise")
+    print(f"sklearn (flagship, 2 epochs, no device: the card): cluster_centers_ and labels_ "
+          f"bitwise a bare XPySom's, predict bitwise, score == -QE ({score!r}), transform "
+          f"{dist.shape} within {worst:.3g} of the f32 bound, its argmin = predict but "
+          f"{len(flips)} near-ties, inverse_transform exact and -1 refused; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    print(f"sklearn walls (host clock, synchronized, s): fit {[round(t, 4) for t in walls['fit']]}"
+          f", bare train + predict + QE {[round(t, 4) for t in walls['bare']]} (turns bare, "
+          f"fit, fit, bare; predicted within 10%; {card})")
+    return launches
+
+
+# examples_torch's scripts that need scikit-learn (its data sets or adapter)
+EXAMPLES_SKLEARN = ("handwritten_digits", "hexagonal_topology", "iris", "sklearn_pipeline",
+                    "wine_table")
+EXAMPLE_TIMEOUT_S = 120
+
+
+def phase_examples(card, workdir):
+    """Every ``examples_torch/*.py`` (phase 22 of the module docstring) in a
+    subprocess of its own from the repository root, with no ``--device``
+    (the card), killed at 120 s: exit 0 and ``device=cuda`` on the first
+    line; the scripts that need scikit-learn are named and skipped where
+    it does not import."""
+    import importlib.util
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    folder = os.path.join(root, "examples_torch")
+    names = sorted(n[:-3] for n in os.listdir(folder) if n.endswith(".py"))
+    require(len(names) == 17, f"examples: {len(names)} scripts in {folder}")
+    sklearn = importlib.util.find_spec("sklearn") is not None
+    env = dict(os.environ, MPLBACKEND="Agg")
+    t_phase = time.perf_counter()
+    skipped = []
+    for name in names:
+        if name in EXAMPLES_SKLEARN and not sklearn:
+            skipped.append(name)
+            continue
+        args = ["--file", os.path.join(workdir, "xsom_demo_torch.f32")] \
+            if name == "large_scale_streaming" else []
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.join(folder, f"{name}.py"), *args],
+                              cwd=root, env=env, capture_output=True, text=True,
+                              timeout=EXAMPLE_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        print(f"examples: {name}.py exit {proc.returncode} in {wall:.2f} s, first line "
+              f"{lines[0] if lines else ''!r}, last {lines[-1][:80] if lines else ''!r}")
+        require(proc.returncode == 0, f"examples: {name}.py failed:\n{proc.stderr[-2000:]}")
+        require(lines[0] == "device=cuda", f"examples: {name}.py began {lines[0]!r}")
+    if skipped:
+        print(f"examples: scikit-learn does not import on this machine; not run: "
+              f"{', '.join(skipped)}")
+    print(f"examples: {len(names) - len(skipped)} scripts in {time.perf_counter() - t_phase:.1f} s "
+          f"(predicted under 90 s; {card})")
+
+
 # the search kernel (ptxas's name, as _kernel_name gives it; for the
 # elementwise engine the prefix of its instances) behind each kernel of the
 # record
@@ -3693,6 +3910,12 @@ def main(argv):
         phase_population(torch, smi, workdir)
         phase_distributed(torch, smi, workdir)
         phase_grid(torch, smi, workdir)
+        # epoch_anatomy's and the adapter's launches (K1, K9, K5) add to
+        # their kernels' counts, each counted just around its own calls
+        for extra in (phase_anatomy(torch, smi), phase_sklearn(torch, smi)):
+            for name, n in extra.items():
+                launches[name] += n
+        phase_examples(smi, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     require("jax" not in sys.modules, "JAX was imported")

@@ -27,7 +27,11 @@ one.
 Data parallel on the card: a world of one process on NCCL
 (``mesh='auto'``) trains two flagship epochs bit for bit as ``mesh=None``
 does, and scores alike; so does a (1, 1) (data, model) grid on NCCL
-(codebook sharding at one shard)."""
+(codebook sharding at one shard).
+
+The sklearn adapter with no ``device`` (the card) trains the flagship bit
+for bit as a bare ``XPySom`` (skipped where scikit-learn does not
+import), and ``epoch_anatomy`` launches each stage's kernels exactly."""
 
 import numpy as np
 import pytest
@@ -212,3 +216,40 @@ def test_one_by_one_grid_on_nccl_is_the_single_device_path(card, tmp_path):
         assert grid.topographic_error(data) == single.topographic_error(data)
     finally:
         dist.destroy_process_group()
+
+
+FLAGSHIP_KW = dict(sigma=64, sigmaN=1, learning_rate=0.5, learning_rateN=0.01, random_seed=0)
+
+
+def test_adapter_trains_the_flagship_bitwise_as_xpysom(card):
+    pytest.importorskip("sklearn")
+    from xpysom_dask_tpu_torch.sklearn import SomClusterer
+
+    data = np.random.RandomState(0).rand(1 << 19, 64).astype(np.float32)
+    est = SomClusterer(128, 128, num_epochs=2, n_parallel=16384, **FLAGSHIP_KW).fit(data)
+    assert est.som_._device.type == "cuda"
+    som = XPySom(128, 128, 64, n_parallel=16384, **FLAGSHIP_KW).train(data, 2)
+    np.testing.assert_array_equal(est.cluster_centers_.view(np.int64),
+                                  som.get_weights().reshape(-1, 64).view(np.int64))
+    np.testing.assert_array_equal(est.labels_, som.predict(data))
+    assert est.score(data) == -som.quantization_error(data)
+
+
+@pytest.mark.parametrize("activation,search", [("euclidean", "bmu_argmin"),
+                                               ("manhattan", "bmu_manhattan")])
+def test_epoch_anatomy_launches_each_stage_its_kernels(card, activation, search):
+    """Each stage launches exactly its kernels once a chunk a run: the
+    search alone in the BMU stage, with K9 in the statistics and epoch
+    stages; the weights stay as they were."""
+    from xpysom_dask_tpu_torch.utils.profiling import epoch_anatomy
+
+    data = np.random.RandomState(0).rand(1 << 17, 64).astype(np.float32)
+    som = XPySom(128, 128, 64, n_parallel=16384, activation_distance=activation,
+                 **FLAGSHIP_KW)
+    w0 = som.get_weights().copy()
+    out = epoch_anatomy(som, data, lo=1, hi=2, reps=1)
+    runs = (1 + 1) * (1 + 2) * 8  # (reps + warm-up) x (lo + hi) x chunks
+    assert out["bmu_launches"] == {search: runs}
+    assert out["stats_launches"] == out["epoch_launches"] == {search: runs, "scatter_stats": runs}
+    assert all(np.isfinite(out[k]) for k in ("bmu_ms", "stats_ms", "epoch_ms"))
+    np.testing.assert_array_equal(som.get_weights().view(np.int64), w0.view(np.int64))

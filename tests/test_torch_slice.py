@@ -280,6 +280,10 @@ def test_port_never_imports_jax(tmp_path):
         "[p.train(d, 2, strategy=st) for st in ('serial', 'fused', 'batched')]; "
         "p.train(ArraySource(d), 1); p.best(d); p.save_checkpoint(sys.argv[1]); "
         "SomPopulation.load_checkpoint(sys.argv[1], device='cpu').quantization_errors(d); "
+        "from xpysom_dask_tpu_torch.sklearn import SomClusterer; "
+        "SomClusterer(3, 3, num_epochs=1, device='cpu').fit(d).transform(d); "
+        "from xpysom_dask_tpu_torch.utils.profiling import epoch_anatomy; "
+        "epoch_anatomy(s, d, lo=1, hi=2, reps=1); "
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)"
     )
     proc = subprocess.run([sys.executable, "-c", code, str(tmp_path / "ck.npz")],

@@ -67,13 +67,6 @@ __all__ = [
 ]
 
 
-def _not_ported(what: str, item: int):
-    raise NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP Queue 1 "
-        f"item {item})"
-    )
-
-
 @dataclass(frozen=True, eq=False)
 class DataMesh:
     """A data-parallel process group as the port's mesh: ``group`` (None

@@ -7,9 +7,13 @@ caller (``'cuda'`` or ``'cpu'``) instead of being asked of JAX.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 __all__ = [
+    "find_cpu_cores",
+    "backend_kind",
     "resolve_device",
     "default_n_parallel",
     "round_up",
@@ -29,6 +33,18 @@ _CPU_BUDGET = 1 << 20
 # Fused-kernel chunk on CUDA: the flagship chunk that bench.py drives.
 # Not measured on the H100 — a neutral default until a port bench tunes it.
 _CUDA_FUSED_CHUNK = 16384
+
+
+def find_cpu_cores() -> int:
+    """Number of host CPU cores (reference utils.py:15-20)."""
+    return os.cpu_count() or 1
+
+
+def backend_kind() -> str:
+    """``'gpu'`` where a CUDA card is available, else ``'cpu'``: the JAX
+    package's words for the default backend. Never raises and never picks
+    a device (that is ``resolve_device``)."""
+    return "gpu" if torch.cuda.is_available() else "cpu"
 
 
 def resolve_device(device=None) -> torch.device:
