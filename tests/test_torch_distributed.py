@@ -186,6 +186,18 @@ def _worker(rank, world, root):
     out["pop_streamed"] = pop.train(ArraySource(x[rank * half:(rank + 1) * half]), 2,
                                     iter_end=1).weights
 
+    # spans under a profiler: this rank's block uploaded, one all_reduce an epoch
+    from xpysom_dask_tpu_torch.utils import profiling
+
+    model, x = som(RECT, mesh="auto"), data_of(RECT)
+    with profiling.trace(os.path.join(root, f"trace{rank}")):
+        model.train(x, 2)
+        model.quantization_error(x)
+    recs = profiling.recorded()[0]
+    out["span_names"] = np.asarray([r["name"] for r in recs])
+    out["span_bytes"] = np.asarray([r["counts"].get("bytes", -1) for r in recs])
+    out["span_calls"] = np.asarray([r["call"] for r in recs])
+
     out["jax_imported"] = np.asarray("jax" in sys.modules)
     np.savez(os.path.join(root, f"rank{rank}.npz"), **out)
     dist.destroy_process_group()
@@ -204,6 +216,7 @@ import pytest  # noqa: E402
 from xpysom_dask_tpu import SomPopulation as JaxPop  # noqa: E402
 from xpysom_dask_tpu import XPySom as JaxSom  # noqa: E402
 from xpysom_dask_tpu_torch import SomPopulation, XPySom  # noqa: E402
+from xpysom_dask_tpu_torch.core import chunk_data as port_chunk_data  # noqa: E402
 from xpysom_dask_tpu_torch.parallel import mesh as port_mesh  # noqa: E402
 
 RTOL, ATOL = 1e-4, 1e-5  # a mesh against one device or JAX's mesh (tests/test_sharded.py)
@@ -344,6 +357,24 @@ def test_training_matches_jax_mesh_and_single_process(ranks, name, cfg):
         got = res[f"train_{name}"]
         np.testing.assert_allclose(got, single, rtol=RTOL, atol=ATOL)
         np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
+
+
+def test_spans_over_a_data_mesh(ranks):
+    """Each rank uploads its half of the chunks, all_reduces the (XY, D+1)
+    statistics once an epoch and QE's two sums once."""
+    x, y, d = RECT["shape"]
+    chunks, mask, _ = port_chunk_data(_data_of(RECT), RECT["kw"]["n_parallel"], multiple_of=WORLD)
+    for res in ranks:
+        names, sent = list(res["span_names"]), res["span_bytes"]
+        assert names == (["xpysom.train", "xpysom.prepare"] + ["xpysom.upload"] * 3
+                         + ["xpysom.epoch", "xpysom.all_reduce"] * 2 + ["xpysom.fetch"]
+                         + ["xpysom.quantization_error", "xpysom.prepare"] + ["xpysom.upload"] * 3
+                         + ["xpysom.all_reduce", "xpysom.fetch"])
+        qe = names.index("xpysom.quantization_error")
+        assert len(set(res["span_calls"][:qe])) == 1 and len(set(res["span_calls"][qe:])) == 1
+        uploads = [b for n, b in zip(names, sent) if n == "xpysom.upload"]
+        assert uploads[:3] == [chunks.nbytes // WORLD, mask.nbytes // WORLD, x * y * d * 4]
+        assert all(b == -1 for n, b in zip(names, sent) if n == "xpysom.all_reduce")
 
 
 def test_ranks_hold_bitwise_equal_codebooks(ranks):

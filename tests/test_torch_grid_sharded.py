@@ -264,6 +264,16 @@ def _worker(rank, world, root):
         out["pair"] = XPySom(*TRAIN["shape"], **TRAIN["kw"], **CPU, mesh=g).train(
             _data_of(TRAIN), TRAIN["epochs"]).get_weights()
     out["resolved"] = np.asarray(resolve_mesh(meshes["2x2"]) is meshes["2x2"])
+
+    # spans under a profiler: each epoch of the grid's loop, its reductions
+    from xpysom_dask_tpu_torch.utils import profiling
+
+    model = som(TRAIN, "2x2")
+    with profiling.trace(os.path.join(root, f"trace{rank}")):
+        model.train(_data_of(TRAIN), 2)
+    recs = profiling.recorded()[0]
+    out["span_names"] = np.asarray([r["name"] for r in recs])
+    out["span_bytes"] = np.asarray([r["counts"].get("bytes", -1) for r in recs])
     out["jax_imported"] = np.asarray("jax" in sys.modules)
     np.savez(os.path.join(root, f"rank{rank}.npz"), **out)
     dist.destroy_process_group()
@@ -370,6 +380,22 @@ def test_grid_sharded_train_matches_single(ranks, grid):
     for res in ranks:
         np.testing.assert_allclose(res[f"train_{grid}"], single, rtol=RTOL, atol=ATOL)
         np.testing.assert_allclose(res[f"train_{grid}"], ref, rtol=RTOL, atol=ATOL)
+
+
+def test_grid_spans_each_epoch_its_reductions_and_its_slice(ranks):
+    """On a (2, 2) grid each rank uploads its data index's chunks and its
+    X-slice of the codebook; each epoch is a span, holding the
+    statistics' all_reduce over the data group and the gathers over the
+    model group."""
+    x, y, d = TRAIN["shape"]
+    for res in ranks:
+        names = list(res["span_names"])
+        assert names[:2] == ["xpysom.train", "xpysom.prepare"] and names[-1] == "xpysom.fetch"
+        assert names.count("xpysom.epoch") == 2 and "xpysom.all_reduce" in names
+        uploads = [b for n, b in zip(names, res["span_bytes"]) if n == "xpysom.upload"]
+        assert uploads[2] == (x // 2) * y * d * 4
+        first, second = [i for i, n in enumerate(names) if n == "xpysom.epoch"]
+        assert "xpysom.all_reduce" in names[first:second]
 
 
 def test_device_mesh_grid_is_the_pair_grid_bitwise(ranks):

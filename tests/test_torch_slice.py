@@ -290,20 +290,3 @@ def test_port_never_imports_jax(tmp_path):
                           capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
 
-
-def test_profile_epoch_needs_a_card_and_merges_intervals(monkeypatch):
-    import importlib.util
-    from pathlib import Path
-    from types import SimpleNamespace
-
-    path = Path(__file__).resolve().parents[1] / "profile_torch_epoch.py"
-    spec = importlib.util.spec_from_file_location("profile_torch_epoch", path)
-    profile_epoch = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(profile_epoch)
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(SystemExit, match="no CUDA card"):
-        profile_epoch.main([])
-    ev = [SimpleNamespace(time_range=SimpleNamespace(start=s, end=e))
-          for s, e in [(0, 10), (5, 12), (20, 25)]]
-    assert profile_epoch._busy_us(ev) == (17, 25)
-    assert profile_epoch._busy_us([]) == (0, 0)

@@ -43,6 +43,7 @@ from .ops.kernels import stats as kstats
 from .ops.kernels import tile as ktile
 from .ops.neighborhoods import apply_operator, neighborhood_operator
 from .utils.envflags import env_flag
+from .utils.profiling import annotate
 
 _F32 = torch.float32
 
@@ -409,7 +410,8 @@ def make_train_fn(spec: SomSpec, num_epochs: int, mesh=None):
 
     def run(w, data, mask, iter_beg, iter_end, progress=None):
         for t in range(int(iter_beg), int(iter_end)):
-            w = step(w, data, mask, t)
+            with annotate("xpysom.epoch"):
+                w = step(w, data, mask, t)
             if progress is not None:
                 progress(t)
         return w

@@ -71,6 +71,7 @@ from ..parallel.pipeline import (
 )
 from ..utils import serialization
 from ..utils.hw import default_n_parallel, resolve_device, training_chunk
+from ..utils.profiling import annotate
 from ..utils.progress import ProgressReporter
 
 __all__ = ["XPySom", "TuneResult"]
@@ -88,8 +89,16 @@ def _chunks_on(data2d: np.ndarray, chunk: int, mesh, device):
     indices': every rank of a model group gets the same one."""
     if isinstance(mesh, GridMesh):
         mesh = mesh.data
-    chunks, mask, n = chunk_data(data2d, chunk, multiple_of=1 if mesh is None else mesh.world)
+    with annotate("xpysom.prepare", rows=data2d.shape[0]) as span:
+        chunks, mask, n = chunk_data(data2d, chunk, multiple_of=1 if mesh is None else mesh.world)
+        span.add(padded_rows=mask.size)
     return put_with_sharding(chunks, mesh, device), put_with_sharding(mask, mesh, device), n
+
+
+def _scalar_ratio(total, count) -> float:
+    """``total / count`` of two device scalars, read on the host."""
+    with annotate("xpysom.fetch"):
+        return float(total) / float(count)
 
 
 def _as_numpy_2d(data) -> np.ndarray:
@@ -381,23 +390,26 @@ class XPySom:
     def _device_weights(self):
         """The codebook as f32 on the device; over a grid, this rank's
         X-slice."""
-        w = np.asarray(self._weights, dtype=np.float32)
-        if self._is_grid:
-            n_model = self._mesh.n_model
-            if self._x % n_model:
-                raise ValueError(
-                    f"grid X={self._x} must divide evenly over {n_model} "
-                    f"model shards (codebook shards along X)"
-                )
-            w = np.ascontiguousarray(grid_sharded.local_slice(w, self._mesh))
-        return torch.from_numpy(w).to(self._device)
+        with annotate("xpysom.upload") as span:
+            w = np.asarray(self._weights, dtype=np.float32)
+            if self._is_grid:
+                n_model = self._mesh.n_model
+                if self._x % n_model:
+                    raise ValueError(
+                        f"grid X={self._x} must divide evenly over {n_model} "
+                        f"model shards (codebook shards along X)"
+                    )
+                w = np.ascontiguousarray(grid_sharded.local_slice(w, self._mesh))
+            span.add(bytes=w.nbytes)
+            return torch.from_numpy(w).to(self._device)
 
     def _to_host(self, w) -> np.ndarray:
         """The full codebook on the host from the device's (over a grid,
         this rank's X-slice: gathered over the model group)."""
         if self._is_grid:
             w = grid_sharded.gather_codebook(w, self._mesh)
-        return w.cpu().numpy()
+        with annotate("xpysom.fetch"):
+            return w.cpu().numpy()
 
     def get_weights(self):
         """Returns the weights of the neural network (numpy)."""
@@ -526,7 +538,8 @@ class XPySom:
             bmu = core.make_bmu_fn(spec or self._spec, self._mesh)(self._device_weights(), chunks)
             # every rank's winners, in rank order, on every rank
             bmu = fetch_global(bmu, self._mesh)
-        return bmu.reshape(-1)[:n].cpu().numpy()
+        with annotate("xpysom.fetch"):
+            return bmu.reshape(-1)[:n].cpu().numpy()
 
     def winner(self, x):
         """Coordinates of the winning neurons for samples x."""
@@ -541,10 +554,13 @@ class XPySom:
     def predict(self, data):
         """Flat (raveled) winner index per sample. Source-like data streams
         through the card in superbatches."""
-        src = self._as_source(data)
-        if src is not None:
-            return self._stream_predict(src)
-        return self._winner_flat(np.atleast_2d(_as_numpy_2d(data))).astype(np.int64)
+        with annotate("xpysom.predict") as span:
+            src = self._as_source(data)
+            if src is not None:
+                return self._stream_predict(src)
+            data2d = np.atleast_2d(_as_numpy_2d(data))
+            span.add(rows=data2d.shape[0])
+            return self._winner_flat(data2d).astype(np.int64)
 
     # -- training ---------------------------------------------------------------
 
@@ -580,6 +596,13 @@ class XPySom:
         ends with the same codebook, and rank 0 writes the checkpoints.
         Over a grid each rank trains its X-slice on its data index's
         chunks and every rank ends with the full codebook."""
+        with annotate("xpysom.train") as span:
+            return self._train(span, data, num_epochs, iter_beg, iter_end, verbose,
+                               checkpoint_path, checkpoint_every)
+
+    def _train(self, span, data, num_epochs, iter_beg, iter_end, verbose, checkpoint_path,
+               checkpoint_every):
+        """``train`` inside its call span ``span``."""
         if checkpoint_every < 0:
             raise ValueError(f"checkpoint_every={checkpoint_every} must be >= 0")
         if iter_end is None:
@@ -587,6 +610,7 @@ class XPySom:
         src = self._as_source(data)
         if src is not None:
             n = len(src)
+            span.add(rows=n)
             w = np.asarray(self._weights, dtype=np.float32)
 
             def run(w, beg, end, progress):
@@ -601,6 +625,7 @@ class XPySom:
         else:
             data2d = _as_numpy_2d(data)
             self._check_input_len(data2d)
+            span.add(rows=data2d.shape[0])
             chunks, mask, n = self._chunked(data2d)
             if self._is_grid:
                 train_fn = grid_sharded.make_train_fn_2d(self._spec, num_epochs, self._mesh)
@@ -678,24 +703,26 @@ class XPySom:
         """Mean distance between samples and their BMU code vectors.
         Source-like data streams in superbatches, folding (Σ errors,
         Σ count) on the host."""
-        src = self._as_source(data)
-        if src is not None:
-            fn = core.make_quantization_stats_fn(self._spec)
-            w = self._device_weights()
-            return self._mean_of([fn(w, c, m) for c, m, _ in self._stream(src)],
-                                 "quantization_error")
-        data2d = np.atleast_2d(_as_numpy_2d(data))
-        self._check_input_len(data2d)
-        if data2d.shape[0] == 0:
-            warn("quantization_error: received no rows.")
-            return float("nan")
-        chunks, mask, _ = self._chunked(data2d)
-        if self._is_grid:
-            fn = grid_sharded.make_quantization_stats_fn_2d(self._spec, self._mesh)
-        else:
-            fn = core.make_quantization_stats_fn(self._spec, self._mesh)
-        tot, n = fn(self._device_weights(), chunks, mask)
-        return float(tot) / float(n)
+        with annotate("xpysom.quantization_error") as span:
+            src = self._as_source(data)
+            if src is not None:
+                fn = core.make_quantization_stats_fn(self._spec)
+                w = self._device_weights()
+                return self._mean_of([fn(w, c, m) for c, m, _ in self._stream(src)],
+                                     "quantization_error")
+            data2d = np.atleast_2d(_as_numpy_2d(data))
+            self._check_input_len(data2d)
+            span.add(rows=data2d.shape[0])
+            if data2d.shape[0] == 0:
+                warn("quantization_error: received no rows.")
+                return float("nan")
+            chunks, mask, _ = self._chunked(data2d)
+            if self._is_grid:
+                fn = grid_sharded.make_quantization_stats_fn_2d(self._spec, self._mesh)
+            else:
+                fn = core.make_quantization_stats_fn(self._spec, self._mesh)
+            tot, n = fn(self._device_weights(), chunks, mask)
+            return _scalar_ratio(tot, n)
 
     @property
     def _te_chunk(self):
@@ -711,33 +738,39 @@ class XPySom:
         if self._x * self._y == 1:
             warn("The topographic error is not defined for a 1-by-1 map.")
             return np.nan
-        src = self._as_source(data)
-        if src is not None:
-            fn = core.make_topographic_stats_fn(self._spec)
-            w = self._device_weights()
-            return self._mean_of([fn(w, c, m) for c, m, _ in self._stream(src, self._te_chunk)],
-                                 "topographic_error")
-        data2d = np.atleast_2d(_as_numpy_2d(data))
-        self._check_input_len(data2d)
-        if data2d.shape[0] == 0:
-            warn("topographic_error: received no rows.")
-            return float("nan")
-        if self._is_grid and self._x * self._y // self._mesh.n_model < 2:
-            # fewer than two rows a shard leave the sharded top-2 merge
-            # undefined: every rank scores on its device from the host
-            # codebook, as the JAX package falls back to one device
-            chunk = training_chunk(data2d.shape[0], self._te_chunk or self._n_parallel)
-            chunks, mask, _ = _chunks_on(data2d, chunk, None, self._device)
-            w = torch.from_numpy(np.asarray(self._weights, dtype=np.float32)).to(self._device)
-            errs, n = core.make_topographic_stats_fn(self._spec)(w, chunks, mask)
-            return float(errs) / float(n)
-        chunks, mask, _ = self._chunked(data2d, self._te_chunk)
-        if self._is_grid:
-            fn = grid_sharded.make_topographic_stats_fn_2d(self._spec, self._mesh)
-        else:
-            fn = core.make_topographic_stats_fn(self._spec, self._mesh)
-        errs, n = fn(self._device_weights(), chunks, mask)
-        return float(errs) / float(n)
+        with annotate("xpysom.topographic_error") as span:
+            src = self._as_source(data)
+            if src is not None:
+                fn = core.make_topographic_stats_fn(self._spec)
+                w = self._device_weights()
+                return self._mean_of(
+                    [fn(w, c, m) for c, m, _ in self._stream(src, self._te_chunk)],
+                    "topographic_error")
+            data2d = np.atleast_2d(_as_numpy_2d(data))
+            self._check_input_len(data2d)
+            span.add(rows=data2d.shape[0])
+            if data2d.shape[0] == 0:
+                warn("topographic_error: received no rows.")
+                return float("nan")
+            if self._is_grid and self._x * self._y // self._mesh.n_model < 2:
+                # fewer than two rows a shard leave the sharded top-2 merge
+                # undefined: every rank scores on its device from the host
+                # codebook, as the JAX package falls back to one device
+                chunk = training_chunk(data2d.shape[0], self._te_chunk or self._n_parallel)
+                chunks, mask, _ = _chunks_on(data2d, chunk, None, self._device)
+                with annotate("xpysom.upload") as up:
+                    w = np.asarray(self._weights, dtype=np.float32)
+                    up.add(bytes=w.nbytes)
+                    w = torch.from_numpy(w).to(self._device)
+                errs, n = core.make_topographic_stats_fn(self._spec)(w, chunks, mask)
+                return _scalar_ratio(errs, n)
+            chunks, mask, _ = self._chunked(data2d, self._te_chunk)
+            if self._is_grid:
+                fn = grid_sharded.make_topographic_stats_fn_2d(self._spec, self._mesh)
+            else:
+                fn = core.make_topographic_stats_fn(self._spec, self._mesh)
+            errs, n = fn(self._device_weights(), chunks, mask)
+            return _scalar_ratio(errs, n)
 
     # -- weight initialization --------------------------------------------------
 

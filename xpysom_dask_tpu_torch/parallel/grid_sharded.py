@@ -49,6 +49,7 @@ from ..core import SomSpec, grid_coordinates, te_fused_mode
 from ..ops.distances import DistanceFunction
 from ..ops.kernels import bmu as kbmu
 from ..ops.kernels import stats as kstats
+from ..utils.profiling import annotate
 from .mesh import all_reduce_sum, fetch_global
 
 _F32 = torch.float32
@@ -233,7 +234,8 @@ def make_train_fn_2d(spec: SomSpec, num_epochs: int, mesh):
     def run(w_local, data, mask, iter_beg, iter_end, progress=None):
         center = None
         for t in range(int(iter_beg), int(iter_end)):
-            w_local, center = step(w_local, data, mask, t, center)
+            with annotate("xpysom.epoch"):
+                w_local, center = step(w_local, data, mask, t, center)
             if progress is not None:
                 progress(t)
         return w_local

@@ -49,6 +49,7 @@ import torch
 import torch.distributed as dist
 
 from ..utils.hw import resolve_device
+from ..utils.profiling import annotate
 
 __all__ = [
     "DataMesh",
@@ -331,14 +332,17 @@ def put_with_sharding(arr: np.ndarray, mesh, device=None) -> torch.Tensor:
     world size by ``chunk_data(multiple_of=)``) on the rank's device; the
     whole array on ``device`` without a mesh."""
     if mesh is None:
-        return torch.from_numpy(arr).to(device)
-    if arr.shape[0] % mesh.world:
-        raise ValueError(
-            f"{arr.shape[0]} rows do not split evenly over {mesh.world} ranks"
-        )
-    per = arr.shape[0] // mesh.world
-    block = np.ascontiguousarray(arr[mesh.rank * per : (mesh.rank + 1) * per])
-    return torch.from_numpy(block).to(mesh.device)
+        block = arr
+    else:
+        if arr.shape[0] % mesh.world:
+            raise ValueError(
+                f"{arr.shape[0]} rows do not split evenly over {mesh.world} ranks"
+            )
+        per = arr.shape[0] // mesh.world
+        block = np.ascontiguousarray(arr[mesh.rank * per : (mesh.rank + 1) * per])
+        device = mesh.device
+    with annotate("xpysom.upload", bytes=block.nbytes):
+        return torch.from_numpy(block).to(device)
 
 
 # integer types of the same width, for gathers that must carry every bit
@@ -363,7 +367,8 @@ def fetch_global(tensor: torch.Tensor, mesh) -> torch.Tensor:
     bits = _BITS[tensor.dtype]
     buf = torch.zeros((mesh.world,) + tuple(tensor.shape), dtype=bits, device=tensor.device)
     buf[mesh.rank] = tensor.contiguous().view(bits)
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
+    with annotate("xpysom.all_reduce"):
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
     return buf.view(tensor.dtype).reshape((-1,) + tuple(tensor.shape[1:]))
 
 
@@ -374,7 +379,8 @@ def all_reduce_sum(tensor: torch.Tensor, mesh) -> torch.Tensor:
     host."""
     if mesh is None or mesh.world == 1:
         return tensor
-    dist.all_reduce(tensor, op=dist.ReduceOp.SUM, group=mesh.group)
+    with annotate("xpysom.all_reduce"):
+        dist.all_reduce(tensor, op=dist.ReduceOp.SUM, group=mesh.group)
     return tensor
 
 

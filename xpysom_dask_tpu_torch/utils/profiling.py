@@ -4,8 +4,10 @@
 - ``trace(dir)``: context manager around ``torch.profiler`` writing a
   TensorBoard-viewable trace (CPU, and the card where there is one) of
   whatever runs inside (e.g. a training call);
-- ``annotate(name)``: a ``record_function`` span, so epoch and
-  superbatch boundaries show up as named spans in the trace;
+- ``annotate(name, **counts)``: a named span of the program (``xpysom.``
+  names on the API path), a no-op while no ``torch.profiler`` runs; under
+  one it is a ``record_function`` span on the trace's timeline and a
+  record kept in memory with its counts (``recorded()``);
 - ``EpochTimer``: lightweight host-side per-epoch wall-clock collector
   (mean/std/last), usable as the ``progress`` callback of the streaming
   pipeline;
@@ -15,13 +17,16 @@
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import statistics
+import threading
 import time
 
 import torch
 
-__all__ = ["trace", "annotate", "EpochTimer", "epoch_anatomy"]
+__all__ = ["trace", "annotate", "recorded", "EpochTimer", "epoch_anatomy"]
 
 
 @contextlib.contextmanager
@@ -37,9 +42,105 @@ def trace(log_dir):
         yield prof
 
 
-def annotate(name: str):
-    """Named span visible in profiler traces."""
-    return torch.profiler.record_function(name)
+class _Buffer:
+    """The last ``capacity`` span records, the oldest dropped first, and
+    how many were dropped."""
+
+    def __init__(self, capacity: int):
+        self.records = collections.deque(maxlen=capacity)
+        self.dropped = 0
+        self.lock = threading.Lock()
+
+    def append(self, record: dict) -> None:
+        with self.lock:
+            if len(self.records) == self.records.maxlen:
+                self.dropped += 1
+            self.records.append(record)
+
+
+CAPACITY = 65536
+_BUFFER = _Buffer(CAPACITY)
+_IDS = itertools.count(1)
+_OPEN = threading.local()  # the ids of each thread's open spans
+
+
+class _Off:
+    """What ``annotate`` gives while no profiler runs: nothing recorded,
+    counts ignored."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def add(self, **counts) -> None:
+        pass
+
+
+_OFF = _Off()
+
+
+class _Span:
+    """One span under a running profiler: a ``record_function`` on the
+    trace's timeline and a record in the buffer (``id``, ``name``, ``t0``
+    and ``t1`` on ``time.perf_counter()``, ``call``: the outermost open
+    span's id, ``counts``)."""
+
+    __slots__ = ("record", "_fn")
+
+    def __init__(self, name: str, counts: dict):
+        self.record = {"id": next(_IDS), "name": name, "t0": None, "t1": None, "call": None,
+                       "counts": counts}
+        self._fn = None
+
+    def __enter__(self):
+        stack = getattr(_OPEN, "stack", None)
+        if stack is None:
+            stack = _OPEN.stack = []
+        rec = self.record
+        rec["call"] = stack[0] if stack else rec["id"]
+        stack.append(rec["id"])
+        _BUFFER.append(rec)  # in start order; t1 is set on exit
+        self._fn = torch.profiler.record_function(rec["name"])
+        self._fn.__enter__()
+        rec["t0"] = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        rec = self.record
+        rec["t1"] = time.perf_counter()
+        self._fn.__exit__(*exc)
+        _OPEN.stack.pop()
+        return False
+
+    def add(self, **counts) -> None:
+        """Add to the span's counts (a missing one starts at 0)."""
+        mine = self.record["counts"]
+        for k, v in counts.items():
+            mine[k] = mine.get(k, 0) + v
+
+
+def annotate(name: str, **counts):
+    """A named span of the program, as a context manager that yields an
+    object whose ``add(**counts)`` adds to the span's counts. While no
+    ``torch.profiler`` runs (``trace(dir)``, or any other) it does nothing:
+    no ``record_function``, no clock reading, no record. Under a profiler
+    the span is a ``record_function(name)`` on the trace's timeline, beside
+    the device's events, and a record in memory (``recorded()``) with
+    ``counts``; the spans of one API call share the outermost span's id."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return _Span(name, dict(counts))
+
+
+def recorded():
+    """``(records, dropped)``: the span records kept (the last
+    ``CAPACITY``, in start order; each a dict as ``annotate`` describes,
+    ``t1`` None while the span is open) and how many older ones were
+    dropped."""
+    with _BUFFER.lock:
+        return list(_BUFFER.records), _BUFFER.dropped
 
 
 class EpochTimer:
