@@ -31,7 +31,12 @@ does, and scores alike; so does a (1, 1) (data, model) grid on NCCL
 
 The sklearn adapter with no ``device`` (the card) trains the flagship bit
 for bit as a bare ``XPySom`` (skipped where scikit-learn does not
-import), and ``epoch_anatomy`` launches each stage's kernels exactly."""
+import), and ``epoch_anatomy`` launches each stage's kernels exactly.
+
+The resident feed on the card: its pinned ring is made once and reused by
+the next call, and the chunks and mask it makes through the ring (rows
+not a multiple of its slice, and a request under one slice) equal the
+CPU feed's bit for bit."""
 
 import numpy as np
 import pytest
@@ -253,3 +258,27 @@ def test_epoch_anatomy_launches_each_stage_its_kernels(card, activation, search)
     assert out["stats_launches"] == out["epoch_launches"] == {search: runs, "scatter_stats": runs}
     assert all(np.isfinite(out[k]) for k in ("bmu_ms", "stats_ms", "epoch_ms"))
     np.testing.assert_array_equal(som.get_weights().view(np.int64), w0.view(np.int64))
+
+
+def test_resident_feed_reuses_its_ring_and_equals_the_cpu_feed(card, monkeypatch):
+    from xpysom_dask_tpu_torch.models.som import _chunks_on
+    from xpysom_dask_tpu_torch.parallel import pipeline
+
+    d = 64
+    monkeypatch.setattr(pipeline, "STAGE_BYTES", 4096 * d * 4)  # 4096 rows a slot
+    monkeypatch.setattr(pipeline, "_RINGS", {})
+    rng = np.random.RandomState(0)
+    calls = [rng.rand(5 * 4096 + 123, d).astype(np.float32),  # six slices, the last ragged
+             rng.rand(1000, d).astype(np.float32)]  # a request under one slice
+    slots = None
+    for data in calls:
+        chunks, mask, n = _chunks_on(data, 1024, None, card)
+        (ring,) = pipeline._RINGS.values()
+        if slots is None:
+            slots = [s.data_ptr() for s in ring.slots]
+            assert all(s.is_pinned() and s.numel() == 4096 * d for s in ring.slots)
+        assert [s.data_ptr() for s in ring.slots] == slots  # the same pinned memory
+        want_chunks, want_mask, want_n = _chunks_on(data, 1024, None, torch.device("cpu"))
+        assert n == want_n and chunks.device.type == mask.device.type == "cuda"
+        assert torch.equal(chunks.cpu().view(torch.int32), want_chunks.view(torch.int32))
+        assert torch.equal(mask.cpu().view(torch.int32), want_mask.view(torch.int32))

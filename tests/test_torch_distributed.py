@@ -360,20 +360,23 @@ def test_training_matches_jax_mesh_and_single_process(ranks, name, cfg):
 
 
 def test_spans_over_a_data_mesh(ranks):
-    """Each rank uploads its half of the chunks, all_reduces the (XY, D+1)
+    """Each rank uploads the rows of its half of the chunks (the padding
+    and the mask are made on its device), all_reduces the (XY, D+1)
     statistics once an epoch and QE's two sums once."""
     x, y, d = RECT["shape"]
-    chunks, mask, _ = port_chunk_data(_data_of(RECT), RECT["kw"]["n_parallel"], multiple_of=WORLD)
-    for res in ranks:
+    chunks, _, n = port_chunk_data(_data_of(RECT), RECT["kw"]["n_parallel"], multiple_of=WORLD)
+    per = chunks.shape[0] // WORLD * chunks.shape[1]
+    for rank, res in enumerate(ranks):
         names, sent = list(res["span_names"]), res["span_bytes"]
-        assert names == (["xpysom.train", "xpysom.prepare"] + ["xpysom.upload"] * 3
+        assert names == (["xpysom.train", "xpysom.prepare"] + ["xpysom.upload"] * 2
                          + ["xpysom.epoch", "xpysom.all_reduce"] * 2 + ["xpysom.fetch"]
-                         + ["xpysom.quantization_error", "xpysom.prepare"] + ["xpysom.upload"] * 3
+                         + ["xpysom.quantization_error", "xpysom.prepare"] + ["xpysom.upload"] * 2
                          + ["xpysom.all_reduce", "xpysom.fetch"])
         qe = names.index("xpysom.quantization_error")
         assert len(set(res["span_calls"][:qe])) == 1 and len(set(res["span_calls"][qe:])) == 1
         uploads = [b for n, b in zip(names, sent) if n == "xpysom.upload"]
-        assert uploads[:3] == [chunks.nbytes // WORLD, mask.nbytes // WORLD, x * y * d * 4]
+        mine = min(n, (rank + 1) * per) - min(n, rank * per)
+        assert uploads[:2] == [mine * d * 4, x * y * d * 4]
         assert all(b == -1 for n, b in zip(names, sent) if n == "xpysom.all_reduce")
 
 

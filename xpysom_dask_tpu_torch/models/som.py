@@ -52,7 +52,7 @@ import numpy as np
 import torch
 
 from .. import core
-from ..core import SomSpec, chunk_data
+from ..core import SomSpec
 from ..ops.decays import DECAY_REGISTRY
 from ..ops.distances import DistanceFunction, euclidean_distance, manhattan_distance_no_opt
 from ..parallel import grid_sharded
@@ -60,7 +60,6 @@ from ..parallel.mesh import (
     GridMesh,
     fetch_global,
     mesh_spans_processes,
-    put_with_sharding,
     resolve_mesh,
 )
 from ..parallel.pipeline import (
@@ -68,9 +67,10 @@ from ..parallel.pipeline import (
     default_superbatch_rows,
     device_superbatches,
     train_streaming,
+    upload_padded,
 )
 from ..utils import serialization
-from ..utils.hw import default_n_parallel, resolve_device, training_chunk
+from ..utils.hw import default_n_parallel, resolve_device, round_up, training_chunk
 from ..utils.profiling import annotate
 from ..utils.progress import ProgressReporter
 
@@ -81,18 +81,31 @@ _HEX_NEIGS = ("gaussian", "mexican_hat", "bubble")
 
 
 def _chunks_on(data2d: np.ndarray, chunk: int, mesh, device):
-    """``chunk_data``'s (C, chunk, D) chunks, (C, chunk) mask and row count,
-    the chunks and mask on ``device``; with a mesh, the chunk count padded
-    to a multiple of the world size (the last rank's extra chunks fully
-    masked: their statistics are exact zeros) and only this rank's block
-    uploaded, on the rank's device. Over a grid the blocks are the data
-    indices': every rank of a model group gets the same one."""
+    """``core.chunk_data``'s (C, chunk, D) chunks, (C, chunk) float32 mask
+    and row count, made on ``device``: the caller's rows copied straight
+    into the padded chunks (``pipeline.upload_padded``: no padded copy on
+    the host), the padding zeroed and the mask built on the device. With a
+    mesh, the chunk count padded to a multiple of the world size (the last
+    rank's extra chunks fully masked: their statistics are exact zeros) and
+    only this rank's block, of its rows alone, on the rank's device. Over a
+    grid the blocks are the data indices': every rank of a model group gets
+    the same one."""
     if isinstance(mesh, GridMesh):
         mesh = mesh.data
-    with annotate("xpysom.prepare", rows=data2d.shape[0]) as span:
-        chunks, mask, n = chunk_data(data2d, chunk, multiple_of=1 if mesh is None else mesh.world)
-        span.add(padded_rows=mask.size)
-    return put_with_sharding(chunks, mesh, device), put_with_sharding(mask, mesh, device), n
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world)
+    n, d = data2d.shape
+    with annotate("xpysom.prepare", rows=n) as span:
+        c = round_up(max(1, -(-n // chunk)), world) // world  # chunks a rank
+        span.add(padded_rows=c * chunk * world)
+    per = c * chunk
+    lo, hi = min(n, rank * per), min(n, (rank + 1) * per)
+    if mesh is not None:
+        device = mesh.device
+    with annotate("xpysom.upload", bytes=(hi - lo) * d * 4):
+        chunks = upload_padded(data2d[lo:hi], per, device)
+        mask = torch.ones(per, dtype=torch.float32, device=chunks.device)
+        mask[hi - lo :].zero_()
+    return chunks.view(c, chunk, d), mask.view(c, chunk), n
 
 
 def _scalar_ratio(total, count) -> float:
@@ -380,7 +393,7 @@ class XPySom:
         return min(self._n_parallel, default_n_parallel(self._x * self._y, self._device.type))
 
     def _chunked(self, data2d: np.ndarray, chunk: int = None):
-        """Pad + chunk host data and place it on the device (with a mesh,
+        """Chunk host data, padded, on the device (with a mesh,
         this rank's block: ``_chunks_on``). One chunk rule for training and
         inference: eager PyTorch has no compiled shapes to bucket.
         ``chunk`` overrides the budget ``n_parallel``."""

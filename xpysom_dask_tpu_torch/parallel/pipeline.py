@@ -20,6 +20,13 @@ not reused before the kernels that read it have finished, and a pinned
 buffer is refilled only after the copy out of it has finished. On the CPU
 the feed is a plain loop.
 
+Resident host arrays (:func:`upload_padded`, the API's chunks) take no
+padded copy on the host: the caller's rows go slice by slice through a
+pinned ring of two ``STAGE_BYTES`` slots, made once a process and card and
+shared by every call and model, straight into the padded device tensor;
+the padding is zeroed on the card. The copies run on the current stream:
+an API call's feed has no kernels of its own to overlap.
+
 Across processes (a data mesh, ``parallel.mesh``): each rank streams its
 own source (``ShardedFileSource`` reads ``files[rank::world]``), carries
 its own running total and all_reduces it once at the end of the epoch.
@@ -43,6 +50,7 @@ rank's own source, as a data mesh does.
 from __future__ import annotations
 
 import os
+import threading
 from typing import Iterator, Optional, Protocol
 
 import numpy as np
@@ -67,6 +75,7 @@ __all__ = [
     "IterableSource",
     "ShardedFileSource",
     "device_superbatches",
+    "upload_padded",
     "train_streaming",
     "stats_streaming",
     "default_superbatch_rows",
@@ -352,6 +361,80 @@ def device_superbatches(source: DataSource, rows: int, chunk: int, device, mesh=
         buffers[k % 2] = (pinned, done)
         mask = (torch.arange(total, device=device) < n).to(torch.float32)
         yield chunks.view(c, chunk, d), mask.view(c, chunk), n
+
+
+STAGE_BYTES = 64 << 20  # one pinned slot of the resident feed's ring
+_RINGS = {}  # card index -> its _StagingRing
+_RINGS_LOCK = threading.Lock()
+
+
+class _StagingRing:
+    """The resident feed's staging on one card: two pinned host slots of
+    ``STAGE_BYTES`` (wider where one row needs it) and the event of the
+    last copy out of each slot. ``lock`` keeps one feed at a time on the
+    ring."""
+
+    def __init__(self):
+        self.slots = [self._pinned(STAGE_BYTES // 4) for _ in range(2)]
+        self.done = [torch.cuda.Event(), torch.cuda.Event()]
+        self.lock = threading.Lock()
+
+    @staticmethod
+    def _pinned(elems: int) -> torch.Tensor:
+        return torch.empty(elems, dtype=torch.float32, pin_memory=True)
+
+    def copy(self, dst: torch.Tensor, src: torch.Tensor) -> None:
+        """``dst.copy_(src)`` from the ``(n, D)`` host tensor ``src`` to the
+        card tensor ``dst``, slice by slice through the slots on the current
+        stream: the host fills one slot while the copy out of the other
+        runs, and refills a slot once its last copy has finished."""
+        n, d = src.shape
+        stream = torch.cuda.current_stream(dst.device)
+        with self.lock:
+            if self.slots[0].numel() < d:  # a row wider than a slot
+                for done in self.done:
+                    done.synchronize()
+                self.slots = [self._pinned(d) for _ in range(2)]
+            step = self.slots[0].numel() // d  # rows a slot holds
+            for k, start in enumerate(range(0, n, step)):
+                m = min(step, n - start)
+                done = self.done[k % 2]
+                done.synchronize()  # the last copy out of this slot has finished
+                staged = self.slots[k % 2][: m * d].view(m, d)
+                staged.copy_(src[start : start + m])
+                dst[start : start + m].copy_(staged, non_blocking=True)
+                done.record(stream)
+
+
+def _staging_ring(device: torch.device) -> _StagingRing:
+    """``device``'s ring, made on first use."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    with _RINGS_LOCK:
+        ring = _RINGS.get(index)
+        if ring is None:
+            ring = _RINGS[index] = _StagingRing()
+        return ring
+
+
+def upload_padded(rows: np.ndarray, total: int, device) -> torch.Tensor:
+    """A ``(total, D)`` float32 tensor on ``device`` holding the ``(n, D)``
+    host array ``rows`` (n <= total) in its first n rows and zeros after
+    them: ``core.chunk_data``'s padded rows, made without a padded copy on
+    the host. On a card the rows go from the caller's memory through the
+    card's pinned ring (:class:`_StagingRing`) on the current stream, as
+    one copy where they fit in a slot; elsewhere by one copy. The padding
+    is zeroed on the device. The tensor is ready for work enqueued on the
+    current stream."""
+    device = torch.device(device)
+    src = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.float32))
+    n, d = src.shape
+    out = torch.empty((total, d), dtype=torch.float32, device=device)
+    if device.type == "cuda":
+        _staging_ring(device).copy(out[:n], src)
+    else:
+        out[:n].copy_(src)
+    out[n:].zero_()
+    return out
 
 
 def _grid_superbatches(source: DataSource, rows: int, chunk: int, mesh: GridMesh):
