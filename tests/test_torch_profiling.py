@@ -68,14 +68,19 @@ def test_under_a_profiler_each_step_of_a_call_is_a_span(tmp_path, name):
     assert all(r["call"] == root["id"] for r in steps)
     assert root["t0"] <= steps[0]["t0"] and steps[-1]["t1"] <= root["t1"]
     assert all(a["t0"] <= a["t1"] <= b["t0"] <= b["t1"] for a, b in zip(steps, steps[1:]))
-    assert all(r["counts"] == {} for r in steps if r["name"] in ("xpysom.epoch", "xpysom.fetch"))
+    assert all(r["counts"] == {} for r in steps if r["name"] == "xpysom.epoch")
 
     chunks, _, _ = chunk_data(data, training_chunk(ROWS, CHUNK))
     codebook = np.asarray(som.get_weights(), dtype=np.float32)
     assert steps[0]["counts"] == {"rows": ROWS, "padded_rows": chunks.shape[0] * chunks.shape[1]}
     assert steps[0]["counts"]["padded_rows"] == 384
-    assert [r["counts"]["bytes"] for r in steps if r["name"] == "xpysom.upload"] == [
-        data.nbytes, codebook.nbytes]
+    # the codebook's upload counts its units (rows), the rows' upload none
+    assert [r["counts"] for r in steps if r["name"] == "xpysom.upload"] == [
+        {"bytes": data.nbytes}, {"bytes": codebook.nbytes, "units": 4 * 5}]
+    # train's fetch is the codebook's, and counts its bytes; the others
+    # read a scalar or the winners
+    fetched = {"bytes": codebook.nbytes} if name == "train" else {}
+    assert steps[-1]["counts"] == fetched
 
     written = "".join(open(os.path.join(d, f)).read() for d, _, fs in os.walk(tmp_path) for f in fs)
     for r in recs:

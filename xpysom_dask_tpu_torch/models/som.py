@@ -402,7 +402,9 @@ class XPySom:
 
     def _device_weights(self):
         """The codebook as f32 on the device; over a grid, this rank's
-        X-slice."""
+        X-slice. Its upload span counts the bytes and the codebook rows
+        sent (``units``), by which a reader tells it from the rows'
+        uploads."""
         with annotate("xpysom.upload") as span:
             w = np.asarray(self._weights, dtype=np.float32)
             if self._is_grid:
@@ -413,7 +415,7 @@ class XPySom:
                         f"model shards (codebook shards along X)"
                     )
                 w = np.ascontiguousarray(grid_sharded.local_slice(w, self._mesh))
-            span.add(bytes=w.nbytes)
+            span.add(bytes=w.nbytes, units=w.shape[0] * w.shape[1])
             return torch.from_numpy(w).to(self._device)
 
     def _to_host(self, w) -> np.ndarray:
@@ -421,7 +423,10 @@ class XPySom:
         this rank's X-slice: gathered over the model group)."""
         if self._is_grid:
             w = grid_sharded.gather_codebook(w, self._mesh)
-        with annotate("xpysom.fetch"):
+        if w.device.type == "cuda":
+            # the fetch's span times the copy, not the kernels queued before it
+            torch.cuda.current_stream(w.device).synchronize()
+        with annotate("xpysom.fetch", bytes=w.numel() * w.element_size()):
             return w.cpu().numpy()
 
     def get_weights(self):
@@ -773,7 +778,7 @@ class XPySom:
                 chunks, mask, _ = _chunks_on(data2d, chunk, None, self._device)
                 with annotate("xpysom.upload") as up:
                     w = np.asarray(self._weights, dtype=np.float32)
-                    up.add(bytes=w.nbytes)
+                    up.add(bytes=w.nbytes, units=self._x * self._y)
                     w = torch.from_numpy(w).to(self._device)
                 errs, n = core.make_topographic_stats_fn(self._spec)(w, chunks, mask)
                 return _scalar_ratio(errs, n)
