@@ -31,6 +31,14 @@ Phases (each prints lines; any failure raises and exits non-zero):
      259), K1 under the norm_p p = 4 expansion in mode packed, timed
      beside one bf16 cuBLAS product with an f32 output + ``argmin`` (K2:
      + ``topk(2)``) and with each block's A streamed instead of resident,
+     then K1's and K2's three feeds (``phase_feeds``: A streamed, pairs
+     of row blocks sharing each codebook chunk, A in registers; ptxas's
+     report of each instance; bit for bit each other on 1, 2, 3 and 129
+     row blocks at 129 and 16384 nodes, D = 5, 30, 50, 64 and 500, and on
+     the tie fixtures; ``paired`` and ``registers`` counting exactly the
+     launches ``search_feed`` routes there; K10 bitwise K1 + K9; K1, K2
+     and K1's feed alone timed on each feed at the flagship chunk and at
+     websom-fit's, with the bytes they move from L2),
      then K9 (statistics scatter) bitwise against its
      plain version and a second launch on the three flagship chunks
      (uniform nodes, K1's nodes, the initial codebook's) and on fixtures
@@ -296,21 +304,24 @@ def phase_card(torch):
 
 
 # csrc/gemm_sm90.cu's search variants, in the order of its enum Search
-SEARCHES = ("K1 ARGMIN", "K3 SPLIT3", "K2 TOP2", "K1-kb KBLOCKED")
+SEARCHES = ("K1 ARGMIN", "K3 SPLIT3", "K2 TOP2", "K1-kb KBLOCKED", "FEED")
 
 
 def _kernel_name(mangled):
     """The last component of a mangled kernel name (plus the gemm_sm90
-    variant, or the tile_argmin.cuh term and epilogue):
+    variant and its feed: ``pair``, or ``A in registers xN`` for N chunks;
+    or the tile_argmin.cuh term and epilogue):
     ``_ZN<len><name><len><name>...``."""
     rest, name = mangled[3:] if mangled.startswith("_ZN") else "", mangled
     while rest[:1].isdigit():
         n = int(re.match(r"\d+", rest).group())
         rest = rest[len(str(n)):]
         name, rest = rest[:n], rest[n:]
-    v = re.search(r"SearchE(\d)", mangled)
+    v = re.search(r"SearchE(\d)E(?:Li(\d+)ELi(\d+)E)?", mangled)
     if v:
-        return f"{name} <{SEARCHES[int(v.group(1))]}>"
+        cluster, ra = int(v.group(2) or 1), int(v.group(3) or 0)
+        tail = (" pair" if cluster > 1 else "") + (f" A in registers x{ra}" if ra else "")
+        return f"{name} <{SEARCHES[int(v.group(1))]}>{tail}"
     t = re.search(r"(L1Term|PowTerm|FracTerm)(?:I((?:L[bi]n?\d+E)+)E)?ELb([01])E", mangled)
     if t:
         args = [{"b0": "false", "b1": "true"}.get(k + a, a.replace("n", "-"))
@@ -811,10 +822,9 @@ def phase_kernels(torch, card):
         "the samples' layout pre-pass": cuda_ms(torch, lambda: kb.lay_out(a, kb.GEMM_BM)),
         "the codebook's layout pre-pass": cuda_ms(
             torch, lambda: kb.lay_out(w_aug[:, :xy].T, kb.K1_BN)),
-        "K1's kernel alone, A resident": cuda_ms(torch, lambda: kb._gemm_sm90(
-            "xps_gemm_argmin", (a_laid, laid), a.shape[0], a.shape[1], xy, True)),
-        "K1's kernel alone, A streamed": cuda_ms(torch, lambda: kb._gemm_sm90(
-            "xps_gemm_argmin", (a_laid, laid), a.shape[0], a.shape[1], xy, False)),
+        **{f"K1's kernel alone, {FEED_NAMES[feed]}": cuda_ms(
+            torch, lambda: kb._gemm_sm90("xps_gemm_argmin", (a_laid, laid), a.shape[0],
+                                         a.shape[1], xy, feed)) for feed in FEED_NAMES},
     }
     for label, ms in parts.items():
         print(f"time bmu_argmin (K1) at the flagship chunk (K = {a.shape[1]}), {label}: "
@@ -825,8 +835,9 @@ def phase_kernels(torch, card):
         "the search as TE runs it (PackedCodebook.top2: centering, the samples packed and "
         "laid out in one pass, K2)": cuda_ms(torch, lambda: cb.top2(xt)),
         "K2 laying the codebook out in the call too": cuda_ms(torch, lambda: kb.bmu_top2(*ops)),
-        "K2's kernel alone (A streamed)": cuda_ms(torch, lambda: kb._gemm_sm90(
-            "xps_gemm_top2", (a_laid, laid), a.shape[0], a.shape[1], xy, outs=4)),
+        **{f"K2's kernel alone, {FEED_NAMES[feed]}": cuda_ms(
+            torch, lambda: kb._gemm_sm90("xps_gemm_top2", (a_laid, laid), a.shape[0],
+                                         a.shape[1], xy, feed, outs=4)) for feed in FEED_NAMES},
     }
     for label, ms in parts.items():
         print(f"time bmu_top2 (K2) at the flagship chunk (K = {a.shape[1]}), {label}: "
@@ -846,6 +857,221 @@ def phase_kernels(torch, card):
     timings["scatter_stats"], errs["scatter_stats"], bounds["scatter_stats"] = phase_stats(
         torch, card, x, idx)
     return timings, errs, bounds
+
+
+# K1's and K2's feeds (csrc/gemm_sm90.cu; ops/kernels/bmu.py search_feed),
+# by the entries' codes
+FEED_NAMES = {0: "A streamed, one block a row block", 1: "pairs of row blocks sharing each "
+              "codebook chunk", 2: "A in registers, one block a row block"}
+# (samples, nodes, D) whose rows make 1, 2, 3 and 129 row blocks, at 129 and
+# 16384 nodes (D = 64, K = 208: A in registers four chunks deep) and at a
+# reduced WEBSOM width (D = 500, K = 1504: A streamed or pairs); then A in
+# registers one, two and three chunks deep (D = 5, 30, 50: K = 32, 96, 160)
+FEED_SHAPES = tuple((n, xy, d) for d, xys in ((64, (129, 16384)), (500, (3000,)))
+                    for xy in xys for n in (64, 129, 384, 16384 + 64)) + (
+    (384, 3000, 5), (384, 3000, 30), (16384 + 64, 16384, 50))
+# websom-fit's chunk: 16384 rows of 500 attributes against 1044 x 960 units
+WEBSOM_CHUNK = (16384, 1044 * 960, 500)
+
+
+def _feeds(kb, k):
+    """The feeds K1 and K2 take at depth k: A in registers only up to
+    REGISTER_K."""
+    return [f for f in FEED_NAMES if f != kb.FEED_REGISTERS or -(-k // 16) * 16 <= kb.REGISTER_K]
+
+
+def _search_fed(torch, kb, entry, a_laid, w_laid, n, k, xy, feed):
+    """K1 (``entry`` ``xps_gemm_argmin``) or K2 (``xps_gemm_top2``) on
+    laid-out operands on a given feed, not the one ``search_feed`` picks."""
+    return kb._gemm_sm90(entry, (a_laid, w_laid), n, k, xy, feed,
+                         outs=2 if entry == "xps_gemm_argmin" else 4)
+
+
+def _feed(torch, a_laid, w_laid, n, k, xy, cluster):
+    """K1's feed alone (csrc/gemm_sm90.cu ``xps_gemm_feed``): K1's grid,
+    ring and copies with A streamed, no product; cluster 1 or 2 (pairs)."""
+    from xpysom_dask_tpu_torch.ops.kernels import build
+
+    rc = build.load_library().xps_gemm_feed(
+        a_laid.data_ptr(), w_laid.data_ptr(), n, -(-k // 16) * 16, xy, cluster,
+        torch.cuda.current_stream().cuda_stream)
+    build.check(rc, "gemm_feed")
+
+
+def _feed_bytes(n, xy, k, feed):
+    """``(to the SMs, from L2)``: the bytes a feed of K1 moves for one
+    search of n rows against xy units at depth k. A streamed: every row
+    block's A chunks with every codebook chunk of every tile; pairs (feed
+    1): the same into each block, but each codebook chunk read once a
+    pair, and a pair's block past the rows reads no A; A in registers
+    (feed 2): each row block's A once, then the codebook chunks."""
+    k16 = -(-k // 16) * 16
+    rb, tiles = -(-n // 128), -(-xy // 128)
+    pair = 2 if feed == 1 else 1
+    blocks = -(-rb // pair) * pair
+    a = rb * 128 * k16 * 2 * (1 if feed == 2 else tiles)
+    b = tiles * 128 * k16 * 2
+    return a + blocks * b, a + blocks // pair * b
+
+
+def _time_feeds(torch, fn, feeds, reps, warmup):
+    """``{feed: [ms, ms]}``: ``fn(feed)`` timed by CUDA events in the order
+    of ``feeds`` and then back."""
+    out = {f: [] for f in feeds}
+    for f in feeds + feeds[::-1]:
+        out[f].append(cuda_ms(torch, lambda: fn(f), reps=reps, warmup=warmup))
+    return out
+
+
+def _feed_bits(torch, kb, name, x, w):
+    """On (x, w) packed as the main path packs them: K1 and K2 on every
+    feed the depth takes equal A streamed on one block a row block bit for
+    bit (pairs over one row block: the pair's second block past the rows),
+    and the routed searches (``PackedCodebook.argmin``/``.top2``) are those
+    bits; then ``compare_bmu`` against the plain versions. Returns the
+    routed feed."""
+    xt = torch.from_numpy(x).cuda()
+    cb = kb.PackedCodebook(torch.from_numpy(w).cuda())
+    n, d = x.shape
+    k, xy = 3 * d + 3, cb.xy
+    w_laid = cb.laid()[0]
+    a_laid = kb.lay_out_samples(xt, cb.center, "packed")
+    for entry, routed in (("xps_gemm_argmin", cb.argmin), ("xps_gemm_top2", cb.top2)):
+        one = _search_fed(torch, kb, entry, a_laid, w_laid, n, k, xy, kb.FEED_STREAMED)
+        for feed in _feeds(kb, k)[1:]:
+            require(_bits_equal(torch, _search_fed(torch, kb, entry, a_laid, w_laid, n, k, xy,
+                                                   feed), one),
+                    f"feeds, {name}: {entry} with {FEED_NAMES[feed]} differs in bits from A "
+                    "streamed")
+        require(_bits_equal(torch, routed(xt), one), f"feeds, {name}: the routed {entry} "
+                "differs in bits from A streamed")
+    compare_bmu(torch, kb, f"feeds, {name}", x, w)
+    return kb.search_feed(n, k, xy)
+
+
+def phase_feeds(torch, card, ptxas):
+    """K1's and K2's feeds (``xps_gemm_argmin``'s and ``xps_gemm_top2``'s
+    ``feed``): ptxas's registers and spills of each instance; every feed
+    bit for bit A streamed's at every shape of FEED_SHAPES and on the tie
+    fixtures, and against the plain versions; ``paired`` and ``registers``
+    counting exactly the launches that ``search_feed`` sends there; K10
+    (A streamed) bitwise K1 (A in registers) + K9 on the flagship chunk;
+    then K1, K2 and K1's feed alone (``xps_gemm_feed``: the ring's copies,
+    no product) timed on each feed at the flagship chunk, whose operands
+    stay in L2, and at websom-fit's chunk, beside the bytes they move to
+    the SMs and read from L2."""
+    from xpysom_dask_tpu_torch.ops import kernels
+    from xpysom_dask_tpu_torch.ops.kernels import bmu as kb
+    from xpysom_dask_tpu_torch.ops.kernels import fused_stats as kf
+    from xpysom_dask_tpu_torch.ops.kernels import stats as ks
+
+    for search in ("K1 ARGMIN", "K2 TOP2"):
+        fed = {k: v for k, v in ptxas.items() if k.startswith(f"gemm_sm90_kernel <{search}>")}
+        require(len(fed) == 6, f"ptxas: {search}: {sorted(fed)} (6 instances expected)")
+        for label, regs in sorted(fed.items()):
+            require(regs[1] == regs[2] == 0, f"{label} spills: {regs}")
+            print(f"feeds: ptxas {label}: {regs[0]} registers, no spills (sm_90a)")
+
+    rng = np.random.RandomState(20)
+    kernels.reset_launch_counts()
+    routed = []
+    for n, xy, d in FEED_SHAPES:
+        x = rng.rand(n, d).astype(np.float32)
+        w = (rng.rand(xy, d) * 2 - 1).astype(np.float32)
+        routed.append(_feed_bits(torch, kb, f"{n}x{xy} D={d}", x, w))
+    require(routed.count(kb.FEED_REGISTERS) == 2 * 4 + 3 and kb.FEED_PAIRS not in routed,
+            f"feeds: the shapes routed {routed}")
+    counts = kernels.launch_counts()
+    # per shape: _feed_bits' routed K1 and K2, then compare_bmu's 4 K1 and 3
+    # K2 launches through the wrappers, each on the shape's feed
+    want = {"bmu_argmin": 5 * len(FEED_SHAPES), "bmu_top2": 4 * len(FEED_SHAPES)}
+    for name, per in (("bmu_argmin", 5), ("bmu_top2", 4)):
+        want[f"{name}.paired"] = per * routed.count(kb.FEED_PAIRS)
+        want[f"{name}.registers"] = per * routed.count(kb.FEED_REGISTERS)
+    got = {k: counts[k] for k in want}
+    require(got == want, f"feeds: launches {got}, expected {want}")
+    print(f"feeds: K1 and K2 bitwise equal on every feed on {len(FEED_SHAPES)} shapes "
+          f"{FEED_SHAPES}; the counters count exactly the feeds search_feed picked: {got}")
+
+    # the tie fixture (duplicated codebook rows: the first index wins, the
+    # duplicate is K2's runner-up) on one row block and repeated over three
+    xt = np.zeros((4, 3), np.float32)
+    xt[1] = 5
+    wt = np.zeros((2100, 3), np.float32)
+    wt[7] = 5
+    wt[1500] = 5
+    for rows in (4, 260):
+        x = np.tile(xt, (rows // 4, 1))
+        _feed_bits(torch, kb, f"tie fixture, {rows} rows", x, wt)
+        a, w_aug, xy = kb.PackedCodebook(torch.from_numpy(wt).cuda()).operands(
+            torch.from_numpy(x).cuda())
+        i1, _, i2, _ = (u.cpu().numpy() for u in kb.bmu_top2(a, w_aug, xy))
+        require(i1.tolist() == [0, 7, 0, 0] * (rows // 4) and
+                i2.tolist() == [1, 1500, 1, 1] * (rows // 4),
+                f"feeds, tie fixture, {rows} rows: K2 {i1[:8].tolist()} {i2[:8].tolist()}")
+
+    # K10 runs the streamed search: bitwise K1 on its feed, then K9
+    f = FLAGSHIP
+    x = torch.from_numpy(rng.rand(f["chunk"], f["d"]).astype(np.float32)).cuda()
+    w = torch.from_numpy((rng.rand(f["x"] * f["y"], f["d"]) * 2 - 1).astype(np.float32)).cuda()
+    m = torch.from_numpy((rng.rand(f["chunk"]) > 0.05).astype(np.float32)).cuda()
+    cb = kb.PackedCodebook(w, "packed", center=False)
+    i_f, acc = kf.bmu_stats_fused(x, cb, m)
+    i_1, _ = cb.argmin(x)
+    acc9 = ks.scatter_stats(x, m, i_1, cb.xy)
+    torch.cuda.synchronize()
+    require(torch.equal(i_f, i_1) and torch.equal(acc.view(torch.int32), acc9.view(torch.int32)),
+            "feeds: K10 differs from K1 (A in registers) + K9 in bits")
+    print("feeds: K10 (A streamed) bitwise equal to K1 (A in registers) + K9 on the flagship "
+          "chunk")
+
+    for label, (n, xy, d), reps, warmup in (
+            ("the flagship chunk", (f["chunk"], f["x"] * f["y"], f["d"]), 20, 3),
+            ("websom-fit's chunk", WEBSOM_CHUNK, 3, 1)):
+        g = torch.Generator(device="cuda").manual_seed(n + xy + d)
+        x = torch.rand(n, d, device="cuda", generator=g)
+        cb = kb.PackedCodebook(torch.rand(xy, d, device="cuda", generator=g) * 2 - 1)
+        w_laid = cb.laid()[0]
+        a_laid = kb.lay_out_samples(x, cb.center, "packed")
+        k = 3 * d + 3
+        feeds = _feeds(kb, k)
+        before = kernels.launch_counts()
+        routed = [cb.argmin(x), cb.top2(x)]
+        after = kernels.launch_counts()
+        feed = kb.search_feed(n, k, xy)
+        for name, out in zip(("bmu_argmin", "bmu_top2"), routed):
+            entry = "xps_gemm_argmin" if name == "bmu_argmin" else "xps_gemm_top2"
+            for other in feeds:
+                require(_bits_equal(torch, _search_fed(torch, kb, entry, a_laid, w_laid, n, k,
+                                                       xy, other), out),
+                        f"feeds, {label}: {entry} with {FEED_NAMES[other]} differs in bits")
+            moved = {key: after[key] - before[key] for key in after
+                     if key.startswith(name + ".") and after[key] != before[key]}
+            want = {} if feed == kb.FEED_STREAMED else {
+                f"{name}.{'paired' if feed == kb.FEED_PAIRS else 'registers'}": 1}
+            require(moved == want, f"feeds, {label}: {name} counted {moved}, expected {want}")
+        print(f"feeds, {label}: the routed K1 and K2 took {FEED_NAMES[feed]}, bitwise every "
+              "other feed's")
+        runs = {
+            "K1 (xps_gemm_argmin)": (feeds, lambda fd: _search_fed(
+                torch, kb, "xps_gemm_argmin", a_laid, w_laid, n, k, xy, fd)),
+            "K2 (xps_gemm_top2)": (feeds, lambda fd: _search_fed(
+                torch, kb, "xps_gemm_top2", a_laid, w_laid, n, k, xy, fd)),
+            "K1's feed alone (xps_gemm_feed)": ([0, 1], lambda fd: _feed(
+                torch, a_laid, w_laid, n, k, xy, 2 if fd == 1 else 1)),
+        }
+        for what, (fds, fn) in runs.items():
+            t = _time_feeds(torch, fn, fds, reps, warmup)
+            for fd in fds:
+                ms = sum(t[fd]) / len(t[fd])
+                to_sm, from_l2 = _feed_bytes(n, xy, k, fd)
+                print(f"time feeds, {label} ({n} x {xy}, K = {k}), {what}, {FEED_NAMES[fd]}: "
+                      f"{ms:.4f} ms ({t[fd][0]:.4f}, {t[fd][1]:.4f}); {to_sm / 1e9:.4f} GB to the "
+                      f"SMs at {to_sm / ms / 1e9:.3f} TB/s, {from_l2 / 1e9:.4f} GB from L2 at "
+                      f"{from_l2 / ms / 1e9:.3f} TB/s (CUDA events, {reps} calls after "
+                      f"{warmup}; {card})")
+        del a_laid, w_laid, cb, x
+        torch.cuda.empty_cache()
 
 
 def phase_main_path(torch):
@@ -885,6 +1111,10 @@ def phase_main_path(torch):
     require(counts["bmu_argmin"] >= 3 * n_chunks, "K1 launched too few times")
     require(counts["scatter_stats"] >= 3 * n_chunks, "K9 launched too few times")
     require(counts["bmu_top2"] >= 1, "K2 never launched")
+    # packed D = 64 (K = 208): every launch holds A in registers
+    require(counts["bmu_argmin.registers"] == counts["bmu_argmin"] and
+            counts["bmu_top2.registers"] == counts["bmu_top2"],
+            f"the main path's K1 and K2 did not all hold A in registers: {counts}")
 
     # winners against the plain versions on the same codebook
     ref = XPySom.from_numpy(w, **kw, use_kernels=False)
@@ -2811,7 +3041,8 @@ def _population_sweep(torch, card, cfg, workdir):
         k9 = (n_b if strategy == "batched" else n_m) * p * epochs
         got = (counts["bmu_argmin"], counts["scatter_stats"])
         require(got == (k1, k9), f"{name} {strategy}: K1/K9 launches {got}, expected {(k1, k9)}")
-        others = {k: v for k, v in counts.items() if v and k not in ("bmu_argmin", "scatter_stats")}
+        others = {k: v for k, v in counts.items()
+                  if v and k not in ("bmu_argmin", "scatter_stats") and "." not in k}
         require(not others, f"{name} {strategy}: other kernels launched {others}")
         return got
 
@@ -2999,9 +3230,14 @@ def _timed(torch, walls, name, fn):
 
 def _expect_counts(name, counts, want):
     """The launches of a path: exactly ``want`` (name: count), no other
-    kernel."""
-    got = {k: v for k, v in counts.items() if v}
+    kernel. K1's and K2's launches by feed (``<name>.paired``,
+    ``<name>.registers``) are held only to their kernel's launches here;
+    ``phase_feeds`` checks them exactly."""
+    got = {k: v for k, v in counts.items() if v and "." not in k}
     require(got == want, f"{name}: launches {got}, expected {want}")
+    for k, v in counts.items():
+        if "." in k:
+            require(v <= counts.get(k.split(".")[0], 0), f"{name}: {k} {v} over its launches")
 
 
 def dist_worker(rank, world, backend, store):
@@ -3639,7 +3875,13 @@ def phase_anatomy(torch, card):
                 f"anatomy ({activation}): a stage at or below 0 ms: {ms}")
         both = {search: per_stage, "scatter_stats": per_stage}
         for stage, want in (("bmu", {search: per_stage}), ("stats", both), ("epoch", both)):
-            _expect_counts(f"anatomy ({activation}) {stage}", out[f"{stage}_launches"], want)
+            got = out[f"{stage}_launches"]
+            _expect_counts(f"anatomy ({activation}) {stage}", got, want)
+            # K1 at K = 208: every launch holds A in registers
+            regs = per_stage if search == "bmu_argmin" else 0
+            require(got.get("bmu_argmin.registers", 0) == regs,
+                    f"anatomy ({activation}) {stage}: {got}, {regs} K1 launches with A in "
+                    "registers expected")
         _expect_counts(f"anatomy ({activation})", counts, {search: 3 * per_stage,
                                                            "scatter_stats": 2 * per_stage})
         pred = ANATOMY_PREDICTED[activation]
@@ -3875,6 +4117,7 @@ def main(argv):
         return 0
     ptxas = phase_build()
     timings, errs, bounds = phase_kernels(torch, smi)
+    phase_feeds(torch, smi, ptxas)
     for phase in (phase_tile_kernels, phase_mode_kernels):
         t2, e2, b2 = phase(torch, smi)
         timings.update(t2)

@@ -33,6 +33,11 @@ The sklearn adapter with no ``device`` (the card) trains the flagship bit
 for bit as a bare ``XPySom`` (skipped where scikit-learn does not
 import), and ``epoch_anatomy`` launches each stage's kernels exactly.
 
+K1 and K2 give the same bits on each of their feeds (A streamed, pairs of
+row blocks sharing each codebook chunk, A in registers) on 1, 2, 3 and
+129 row blocks, and the routed launches count the feed ``search_feed``
+picks.
+
 The resident feed on the card: its pinned ring is made once and reused by
 the next call, and the chunks and mask it makes through the ring (rows
 not a multiple of its slice, and a request under one slice) equal the
@@ -91,6 +96,49 @@ def test_k10_equals_k1_then_k9_bitwise(card, name):
     assert torch.equal(acc.view(torch.int32), acc9.view(torch.int32)), "K10's statistics are K9's"
     assert torch.equal(i_f2, i_f) and torch.equal(acc2.view(torch.int32), acc.view(torch.int32))
     assert float(acc[:, -1].sum()) == float(m.sum())
+
+
+# (samples, nodes, D): 1, 2, 3 and 129 row blocks of 128, at 129 and 16384
+# nodes (K = 208: A in registers, four chunks deep) and at a reduced
+# WEBSOM width (K = 1504: A streamed or pairs); A in registers one, two
+# and three chunks deep (K = 32, 96, 160)
+FEED_FIXTURES = [(n, xy, d) for d, xys in ((64, (129, 16384)), (500, (3000,))) for xy in xys
+                 for n in (64, 129, 384, 16384 + 64)] + [(384, 3000, 5), (384, 3000, 30),
+                                                        (16384 + 64, 16384, 50)]
+
+
+def _bits(ts):
+    return [t.view(torch.int32) for t in ts]
+
+
+@pytest.mark.parametrize("n,xy,d", FEED_FIXTURES)
+def test_k1_and_k2_feeds_equal_bitwise(card, n, xy, d):
+    """K1 and K2 on every feed (A streamed; pairs of row blocks sharing
+    each codebook chunk, over one row block the pair's second block past
+    the rows; A in registers up to REGISTER_K) give the same bits, the
+    routed searches take ``search_feed``'s feed, and the counters count
+    it."""
+    rng = np.random.RandomState(n + xy + d)
+    x = torch.from_numpy(rng.rand(n, d).astype(np.float32)).to(card)
+    cb = kb.PackedCodebook(torch.from_numpy((rng.rand(xy, d) * 2 - 1).astype(np.float32)).to(card))
+    k, w_laid = 3 * d + 3, cb.laid()[0]
+    a_laid = kb.lay_out_samples(x, cb.center, "packed")
+    feeds = [kb.FEED_STREAMED, kb.FEED_PAIRS] + [kb.FEED_REGISTERS] * (k <= kb.REGISTER_K)
+    for entry, outs in (("xps_gemm_argmin", 2), ("xps_gemm_top2", 4)):
+        got = [kb._gemm_sm90(entry, (a_laid, w_laid), n, k, xy, f, outs=outs) for f in feeds]
+        assert all(all(map(torch.equal, _bits(g), _bits(got[0]))) for g in got[1:]), entry
+    before = kernels.launch_counts()
+    routed = cb.top2(x)
+    idx, val = cb.argmin(x)
+    after = kernels.launch_counts()
+    assert all(map(torch.equal, _bits((idx, val)), _bits(got[0][:2])))
+    assert all(map(torch.equal, _bits(routed), _bits(got[0])))
+    feed = kb.search_feed(n, k, xy)
+    assert feed == (kb.FEED_REGISTERS if d < 500 else kb.FEED_STREAMED)
+    for name in kernels.FED:
+        assert after[name] - before[name] == 1
+        assert after[f"{name}.registers"] - before[f"{name}.registers"] == int(d < 500)
+        assert after[f"{name}.paired"] == before[f"{name}.paired"]
 
 
 KW = dict(sigma=64, sigmaN=1, learning_rate=0.5, learning_rateN=0.01, random_seed=0)
@@ -254,8 +302,11 @@ def test_epoch_anatomy_launches_each_stage_its_kernels(card, activation, search)
     w0 = som.get_weights().copy()
     out = epoch_anatomy(som, data, lo=1, hi=2, reps=1)
     runs = (1 + 1) * (1 + 2) * 8  # (reps + warm-up) x (lo + hi) x chunks
-    assert out["bmu_launches"] == {search: runs}
-    assert out["stats_launches"] == out["epoch_launches"] == {search: runs, "scatter_stats": runs}
+    # K1 at K = 208 holds A in registers on every launch
+    regs = {"bmu_argmin.registers": runs} if search == "bmu_argmin" else {}
+    assert out["bmu_launches"] == {search: runs, **regs}
+    assert out["stats_launches"] == out["epoch_launches"] == {search: runs, "scatter_stats": runs,
+                                                              **regs}
     assert all(np.isfinite(out[k]) for k in ("bmu_ms", "stats_ms", "epoch_ms"))
     np.testing.assert_array_equal(som.get_weights().view(np.int64), w0.view(np.int64))
 

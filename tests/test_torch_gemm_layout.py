@@ -233,10 +233,16 @@ def test_layout_constants_match_the_kernel_source():
 
     assert const("BM") == kb.GEMM_BM and const("BK") == kb.GEMM_BK
     assert const("RESIDENT_K") == kb.RESIDENT_K
-    # every variant's tile width: K2 and K1-kb read K1's codebook layout
+    assert const("REGISTER_K") == kb.REGISTER_K
+    # K1's and K2's feeds, as the C entries take them
+    feeds = dict(re.findall(r"(FEED_\w+) = (\d+)", src))
+    assert feeds == {"FEED_STREAMED": str(kb.FEED_STREAMED), "FEED_PAIRS": str(kb.FEED_PAIRS),
+                     "FEED_REGISTERS": str(kb.FEED_REGISTERS)}
+    # every variant's tile width: K2, K1-kb and K1's feed alone read K1's
+    # codebook layout
     widths = dict(re.findall(r"struct Cfg<Search::(\w+)> : Shape<(\d+),", src))
     assert widths == {"ARGMIN": str(kb.K1_BN), "SPLIT3": str(kb.K3_BN),
-                      "TOP2": str(kb.K1_BN), "KBLOCKED": str(kb.K1_BN)}
+                      "TOP2": str(kb.K1_BN), "KBLOCKED": str(kb.K1_BN), "FEED": str(kb.K1_BN)}
     # K1-kb's slabs end on chunk ends
     assert 128 % kb.GEMM_BK == 0
 

@@ -246,7 +246,9 @@ def test_launch_counters_stay_zero_on_cpu():
     kernels.manhattan_distance(x, w)
     cb.argmin(x, kblock=128)
     kernels.bmu_stats_fused(x, w, torch.ones(50))
-    assert kernels.launch_counts() == {name: 0 for name in kernels.KERNELS}
+    assert kernels.launch_counts() == {
+        **{name: 0 for name in kernels.KERNELS},
+        **{f"{name}.{feed}": 0 for name in kernels.FED for feed in kernels.FEEDS}}
     assert set(kernels.KERNELS) == {
         "bmu_argmin", "bmu_top2", "scatter_stats", "bmu_highest", "bmu_manhattan",
         "bmu_norm_p_odd", "bmu_norm_p_frac", "bmu_split3", "manhattan_distance",

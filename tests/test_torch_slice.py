@@ -196,7 +196,9 @@ def test_launch_counters_stay_zero_after_cpu_training():
     som.topographic_error(data)
     for kw in ({"activation_distance": "manhattan"}, {"bmu_precision": "highest"}):
         XPySom(4, 4, 3, random_seed=0, device="cpu", **kw).train(data, 1)
-    assert kernels.launch_counts() == {name: 0 for name in kernels.KERNELS}
+    assert kernels.launch_counts() == {
+        **{name: 0 for name in kernels.KERNELS},
+        **{f"{name}.{feed}": 0 for name in kernels.FED for feed in kernels.FEEDS}}
 
 
 def test_edge_contracts():

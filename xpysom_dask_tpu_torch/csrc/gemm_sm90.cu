@@ -56,8 +56,9 @@
 //     (pack_layout_kernel), which took ~10 launches of glue before;
 //   * a block of two consumer warpgroups (64 sample rows each, BM = 128)
 //     and one producer warp loops over all codebook tiles, so nothing
-//     carries between blocks (the search is gemm_sm90.cuh's search_rows,
-//     which K10's persistent blocks run too). One producer thread issues
+//     carries between blocks but the pairs' shared copies (below); the
+//     search is gemm_sm90.cuh's search_rows, which K10's persistent blocks
+//     run too. One producer thread issues
 //     cp.async.bulk copies into a 4-stage ring on mbarriers ("full"); the
 //     consumers release a stage on a second mbarrier ("empty", one
 //     arrival per consumer warp) once the wgmmas that read it retired
@@ -75,6 +76,49 @@
 //     against 0.3795 streamed; K1 0.3342 and 0.3352 resident against
 //     0.3017 and 0.2998 streamed (its resident ring holds half the bytes
 //     in flight);
+//   * K1's and K2's feed follows the shape (ops/kernels/bmu.py search_feed
+//     picks one; the C entries take it as `feed`). Every feed runs the same
+//     wgmma chain in the same tile order with the same finish, so all give
+//     the same bits:
+//     - A in registers (padded depth <= REGISTER_K = 256; one block a row
+//       block): each consumer thread loads its warp's rows of A once, as
+//       wgmma's register fragments (4 registers a 16-deep step: 52 at
+//       K = 208), and the ring carries the codebook chunks alone (8 stages
+//       of 16 KB). A block reads its A from L2 once instead of once a
+//       codebook tile, and the tensor cores read only the codebook from
+//       shared memory. Keeping A resident in shared memory (above) cut the
+//       L2 reads too, but not the shared-memory reads, and lost;
+//     - pairs (past REGISTER_K, two row blocks or more, the laid-out
+//       codebook larger than the 50 MB L2): clusters of PAIR = 2 blocks
+//       along the row blocks (cudaLaunchKernelEx with a cluster dimension)
+//       that walk the same codebook chunks in the same order. Each block's
+//       producer copies its own A chunk and half of each codebook chunk
+//       with one multicast bulk copy into the same stage offset of both
+//       blocks, so each block's full[s] expects its A bytes and the whole
+//       codebook chunk, and a stage is refilled only once the consumer
+//       warps of both blocks released it (empty[s] counts 16 arrivals;
+//       lane r of each warp arrives on block r's barrier through mapa, with
+//       mbarrier.arrive's default CTA-scope release: at cluster scope each
+//       arrival was a fence, and the pairs ran about twice as slow). A
+//       cluster barrier follows the barriers' initialisation, and another
+//       ends the kernel, so that no block exits while its partner can
+//       still arrive on its barriers. With an odd row-block count the last
+//       pair's second block has no rows (the laid-out A ends at the last
+//       row block): it feeds its half and releases its stages, loading no
+//       A and writing nothing. A pair reads each codebook chunk from L2
+//       once; each SM still receives 32 KB a stage;
+//     - A streamed beside each codebook chunk, one block a row block: the
+//       rest (a deep codebook that fits L2).
+//     Measured on one H100 (chip_smoke.py phase_feeds; PERF.md): at the flagship
+//     chunk K1 0.2746 ms streamed, 0.2196 with A in registers, 0.3103 as
+//     pairs (K2 0.3732, 0.3513, 0.4116); at websom-fit's chunk (K = 1504,
+//     a 3.0 GB codebook operand) K1 144.4 ms streamed, 136.6 as pairs (K2
+//     142.9, 138.8). K1's ring alone (variant FEED: the copies, no
+//     products) delivers the flagship chunk's 1.745 GB at 9.7-10.0 TB/s,
+//     where K1 streamed reads it at 6.4 TB/s: L2 bandwidth does not cap
+//     K1 there. Rings of 5-7 stages were no faster at the flagship chunk
+//     and slower at websom-fit's. K10, K3 and K1-kb keep A streamed (K3
+//     resident), one block a row block;
 //   * K1, K2, K1-kb: per 16-deep step one wgmma m64n128k16 per warpgroup
 //     into 64 accumulator registers (K1-kb adds 64 for its running sum);
 //     K3: three wgmma m64n64k16 (hh, hl, lh) into
@@ -198,8 +242,10 @@ __global__ void pack_layout_kernel(const float* __restrict__ x, long long ldx,
   }
 }
 
-// One row block per block: the search of gemm_sm90.cuh.
-template <Search S>
+// One row block per block: the search of gemm_sm90.cuh. CLUSTER > 1:
+// clusters of CLUSTER blocks that share each codebook chunk; RA > 0: A in
+// registers, RA chunks deep; NS: the ring's stages.
+template <Search S, int CLUSTER, int RA = 0, int NS = STAGES>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_sm90_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ a_lo,
                  const __nv_bfloat16* __restrict__ w, const __nv_bfloat16* __restrict__ w_lo,
@@ -207,36 +253,90 @@ gemm_sm90_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __res
                  int* __restrict__ idx_out, float* __restrict__ val_out,
                  int* __restrict__ idx2_out, float* __restrict__ val2_out) {
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ __align__(8) Ring bar;
-  if (threadIdx.x == 0) ring_init(bar);
-  __syncthreads();
-  search_rows<S>(bar, smem, blockIdx.x, a, a_lo, w, w_lo, w_sq, n, k16, xy, resident, slab,
-                 idx_out, val_out, idx2_out, val2_out);
+  __shared__ __align__(8) RingOf<NS> bar;
+  if (threadIdx.x == 0) ring_init<CLUSTER>(bar);
+  if constexpr (CLUSTER > 1) {
+    cluster_sync();  // every block's barriers initialised before any copy lands on them
+  } else {
+    __syncthreads();
+  }
+  search_rows<S, CLUSTER, RA>(bar, smem, blockIdx.x, a, a_lo, w, w_lo, w_sq, n, k16, xy,
+                              resident, slab, idx_out, val_out, idx2_out, val2_out);
+  // the others' consumers may still arrive on this block's barriers
+  if constexpr (CLUSTER > 1) cluster_sync();
 }
 
-template <Search S>
+template <Search S, int CLUSTER = 1, int RA = 0, int NS = STAGES>
 int launch(const void* a, const void* a_lo, const void* w, const void* w_lo, const void* w_sq,
            int n, int k16, int xy, int resident, int slab, void* idx, void* val, void* idx2,
            void* val2, void* stream) {
   using C = Cfg<S>;
+  // A in registers: the ring carries the codebook alone
+  constexpr int smem_bytes = RA ? NS * C::OPS * C::B_CHUNK : C::smem_bytes(NS);
+  static_assert(smem_bytes <= 227 * 1024, "shared memory of a search");
   if (k16 <= 0 || k16 % 16 || xy <= 0 || (resident && k16 > RESIDENT_K) ||
-      (S == Search::KBLOCKED && slab <= 0))
+      (RA && (k16 + BK - 1) / BK != RA) || (S == Search::KBLOCKED && slab <= 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   static bool smem_set = false;
   if (!smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        gemm_sm90_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
+        gemm_sm90_kernel<S, CLUSTER, RA, NS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = true;
   }
-  gemm_sm90_kernel<S><<<(n + BM - 1) / BM, THREADS, C::SMEM_BYTES,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(a_lo),
-      static_cast<const __nv_bfloat16*>(w), static_cast<const __nv_bfloat16*>(w_lo),
-      static_cast<const float*>(w_sq), n, k16, xy, resident, slab, static_cast<int*>(idx),
-      static_cast<float*>(val), static_cast<int*>(idx2), static_cast<float*>(val2));
-  return static_cast<int>(cudaGetLastError());
+  const int blocks = (n + BM - 1) / BM;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((blocks + CLUSTER - 1) / CLUSTER * CLUSTER);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = CLUSTER > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, gemm_sm90_kernel<S, CLUSTER, RA, NS>, static_cast<const __nv_bfloat16*>(a),
+      static_cast<const __nv_bfloat16*>(a_lo), static_cast<const __nv_bfloat16*>(w),
+      static_cast<const __nv_bfloat16*>(w_lo), static_cast<const float*>(w_sq), n, k16, xy,
+      resident, slab, static_cast<int*>(idx), static_cast<float*>(val), static_cast<int*>(idx2),
+      static_cast<float*>(val2));
+  const cudaError_t last = cudaGetLastError();  // read (and cleared) either way
+  return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
+// K1 or K2 (S) on its feed (the Feed enum of gemm_sm90.cuh);
+// cudaErrorInvalidValue for another feed, or A in registers past
+// REGISTER_K
+template <Search S>
+int launch_fed(int feed, const void* a, const void* w, int n, int k16, int xy, void* idx,
+               void* val, void* idx2, void* val2, void* stream) {
+  if (feed == FEED_STREAMED)
+    return launch<S>(a, nullptr, w, nullptr, nullptr, n, k16, xy, 0, 0, idx, val, idx2, val2,
+                     stream);
+  if (feed == FEED_PAIRS)
+    return launch<S, PAIR>(a, nullptr, w, nullptr, nullptr, n, k16, xy, 0, 0, idx, val, idx2,
+                           val2, stream);
+  if (feed != FEED_REGISTERS) return static_cast<int>(cudaErrorInvalidValue);
+  switch ((k16 + BK - 1) / BK) {
+    case 1:
+      return launch<S, 1, 1, REG_STAGES>(a, nullptr, w, nullptr, nullptr, n, k16, xy, 0, 0, idx,
+                                         val, idx2, val2, stream);
+    case 2:
+      return launch<S, 1, 2, REG_STAGES>(a, nullptr, w, nullptr, nullptr, n, k16, xy, 0, 0, idx,
+                                         val, idx2, val2, stream);
+    case 3:
+      return launch<S, 1, 3, REG_STAGES>(a, nullptr, w, nullptr, nullptr, n, k16, xy, 0, 0, idx,
+                                         val, idx2, val2, stream);
+    case 4:
+      return launch<S, 1, 4, REG_STAGES>(a, nullptr, w, nullptr, nullptr, n, k16, xy, 0, 0, idx,
+                                         val, idx2, val2, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -277,31 +377,45 @@ int xps_pack_layout(const void* x, long long ldx, const void* center, int rows, 
 }
 
 // K1. a: the samples' A (n x k16) laid out in 128-row tiles; w: W_aug's
-// transpose (xy x k16) laid out in 128-row tiles; resident: keep each
-// block's A in shared memory (k16 <= 256). idx: (n,) int32 and val: (n,)
-// f32 outputs. Returns cudaGetLastError().
-int xps_gemm_argmin(const void* a, const void* w, int n, int k16, int xy, int resident,
-                    void* idx, void* val, void* stream) {
-  return launch<Search::ARGMIN>(a, nullptr, w, nullptr, nullptr, n, k16, xy, resident, 0, idx,
-                                val, nullptr, nullptr, stream);
+// transpose (xy x k16) laid out in 128-row tiles; feed: FEED_STREAMED,
+// FEED_PAIRS or FEED_REGISTERS (k16 <= REGISTER_K). idx: (n,) int32 and
+// val: (n,) f32 outputs. Returns the launch's error.
+int xps_gemm_argmin(const void* a, const void* w, int n, int k16, int xy, int feed, void* idx,
+                    void* val, void* stream) {
+  return launch_fed<Search::ARGMIN>(feed, a, w, n, k16, xy, idx, val, nullptr, nullptr, stream);
 }
 
 // K3. xh, xl: the samples' split (n x k16) laid out in 128-row tiles; wh,
 // wl: the codebook's split (xy x k16) laid out in 64-row tiles; w_sq: (xy,)
-// f32. Returns cudaGetLastError().
+// f32. Returns the launch's error.
 int xps_gemm_split3(const void* xh, const void* xl, const void* wh, const void* wl,
                     const void* w_sq, int n, int k16, int xy, int resident, void* idx, void* val,
                     void* stream) {
-  return launch<Search::SPLIT3>(xh, xl, wh, wl, w_sq, n, k16, xy, resident, 0, idx, val,
-                                nullptr, nullptr, stream);
+  return launch<Search::SPLIT3>(xh, xl, wh, wl, w_sq, n, k16, xy, resident, 0, idx, val, nullptr,
+                                nullptr, stream);
 }
 
-// K2. a, w: as K1's (A streamed); idx, val: the winner, idx2, val2: the
-// runner-up, (n,) int32 and f32 each. Returns cudaGetLastError().
-int xps_gemm_top2(const void* a, const void* w, int n, int k16, int xy, void* idx, void* val,
-                  void* idx2, void* val2, void* stream) {
-  return launch<Search::TOP2>(a, nullptr, w, nullptr, nullptr, n, k16, xy, 0, 0, idx, val, idx2,
-                              val2, stream);
+// K2. a, w, feed: as K1's; idx, val: the winner, idx2, val2: the
+// runner-up, (n,) int32 and f32 each. Returns the launch's error.
+int xps_gemm_top2(const void* a, const void* w, int n, int k16, int xy, int feed, void* idx,
+                  void* val, void* idx2, void* val2, void* stream) {
+  return launch_fed<Search::TOP2>(feed, a, w, n, k16, xy, idx, val, idx2, val2, stream);
+}
+
+// K1's feed alone (variant FEED): K1's grid, ring and copies on K1's
+// operands (A streamed), each stage released as it lands, no product and
+// no output; cluster: 1, or PAIR (pairs of row blocks sharing each
+// codebook chunk). What the ring's copies can deliver, timed beside K1.
+// Returns the launch's error.
+int xps_gemm_feed(const void* a, const void* w, int n, int k16, int xy, int cluster,
+                  void* stream) {
+  if (cluster == 1)
+    return launch<Search::FEED>(a, nullptr, w, nullptr, nullptr, n, k16, xy, 0, 0, nullptr,
+                                nullptr, nullptr, nullptr, stream);
+  if (cluster == PAIR)
+    return launch<Search::FEED, PAIR>(a, nullptr, w, nullptr, nullptr, n, k16, xy, 0, 0, nullptr,
+                                      nullptr, nullptr, nullptr, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // K1-kb. a, w: as K1's (A streamed), k16 not padded to kblock; kblock: the

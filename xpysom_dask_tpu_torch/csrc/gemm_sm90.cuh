@@ -9,6 +9,15 @@
 // count from one row block to the next instead made the stage index a
 // run-time value, and on one H100 the search ran slower with it, even on
 // a single row block, than with a reset's pipeline drain.
+//
+// K1 and K2 take one of three feeds (gemm_sm90.cu's design note says which
+// and why): A streamed beside each codebook chunk; pairs, where a launch of
+// clusters of CLUSTER blocks runs search_rows<S, CLUSTER> in every block,
+// one row block each, the blocks walking the same codebook chunks in the
+// same order, each reading 1 / CLUSTER of every chunk from L2 and
+// multicasting it into the same stage of every block of the cluster; and
+// A in registers (search_rows<S, 1, RA>), the ring carrying the codebook
+// alone.
 
 #pragma once
 
@@ -32,10 +41,20 @@ constexpr int CONSUMERS = 256;    // two warpgroups
 constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
 constexpr int RESIDENT_K = 256;   // A stays resident up to this padded depth
 constexpr int LBO_BYTES = 128;    // between the core matrices adjacent along K
+constexpr int PAIR = 2;           // blocks of a cluster of K1 and K2 on the pairs' feed
+constexpr int REGISTER_K = 256;   // K1 and K2 hold A in registers up to this padded depth
+constexpr int REG_STAGES = 8;     // the ring's stages with A in registers (codebook chunks alone)
+
+// K1's and K2's feeds (ops/kernels/bmu.py search_feed picks one from the
+// shape): A streamed beside each codebook chunk, one block a row block;
+// pairs of row blocks that share each codebook chunk (a cluster of PAIR);
+// A held in registers, one block a row block (k16 <= REGISTER_K)
+enum Feed { FEED_STREAMED = 0, FEED_PAIRS = 1, FEED_REGISTERS = 2 };
 
 // The searches: K1's argmin, K3's three products, K2's top two, K1-kb's
-// slab sums
-enum class Search { ARGMIN, SPLIT3, TOP2, KBLOCKED };
+// slab sums; and FEED, K1's ring alone (its consumers wait for each stage
+// and release it), which measures what the copies can feed
+enum class Search { ARGMIN, SPLIT3, TOP2, KBLOCKED, FEED };
 
 template <int BN_, int OPS_, int NACC_>
 struct Shape {
@@ -45,12 +64,14 @@ struct Shape {
   static constexpr int REGS = BN / 2;  // f32 accumulators per set
   static constexpr int A_CHUNK = BM * BK * 2;  // bytes of one half's A chunk
   static constexpr int B_CHUNK = BN * BK * 2;
-  // resident: the A tile, then the ring of W chunks; streamed: the ring of
-  // (A chunk, W chunk) stages
-  static constexpr int RESIDENT_BYTES = OPS * BM * RESIDENT_K * 2 + STAGES * OPS * B_CHUNK;
-  static constexpr int STREAMED_BYTES = STAGES * OPS * (A_CHUNK + B_CHUNK);
-  static constexpr int SMEM_BYTES =
-      RESIDENT_BYTES > STREAMED_BYTES ? RESIDENT_BYTES : STREAMED_BYTES;
+  // the dynamic shared memory of a ring of ns stages, resident (the A
+  // tile, then the ring of W chunks) or streamed ((A chunk, W chunk) stages)
+  static constexpr int smem_bytes(int ns) {
+    return OPS * BM * RESIDENT_K * 2 + ns * OPS * B_CHUNK > ns * OPS * (A_CHUNK + B_CHUNK)
+               ? OPS * BM * RESIDENT_K * 2 + ns * OPS * B_CHUNK
+               : ns * OPS * (A_CHUNK + B_CHUNK);
+  }
+  static constexpr int SMEM_BYTES = smem_bytes(STAGES);
 };
 
 // Each variant's tile width, operand halves and accumulator sets. K2 and
@@ -67,23 +88,31 @@ template <>
 struct Cfg<Search::TOP2> : Shape<128, 1, 1> {};
 template <>
 struct Cfg<Search::KBLOCKED> : Shape<128, 1, 1> {};
+template <>
+struct Cfg<Search::FEED> : Shape<128, 1, 1> {};
 static_assert(Cfg<Search::SPLIT3>::SMEM_BYTES <= 227 * 1024, "shared memory of K3");
 static_assert(Cfg<Search::ARGMIN>::SMEM_BYTES <= 227 * 1024, "shared memory of K1");
 
-// The ring's mbarriers, in a block's static shared memory
-struct Ring {
-  uint64_t full[STAGES];   // stage landed
-  uint64_t empty[STAGES];  // stage released by every consumer warp
-  uint64_t a_full;         // resident A landed
+// The ring's mbarriers (a ring of NS stages), in a block's static shared
+// memory
+template <int NS = STAGES>
+struct RingOf {
+  uint64_t full[NS];   // stage landed
+  uint64_t empty[NS];  // stage released by every consumer warp (of the cluster)
+  uint64_t a_full;     // resident A landed
 };
+using Ring = RingOf<>;
 
-// One thread initialises the ring; the block then passes a barrier before
-// any thread uses it.
-__device__ __forceinline__ void ring_init(Ring& bar) {
+// One thread initialises the ring; the block (the cluster) then passes a
+// barrier before any thread uses it. In a cluster every block's producer
+// writes into every block's stages, so a stage is free once the consumer
+// warps of all CLUSTER blocks have released it.
+template <int CLUSTER = 1, int NS>
+__device__ __forceinline__ void ring_init(RingOf<NS>& bar) {
 #pragma unroll
-  for (int s = 0; s < STAGES; ++s) {
+  for (int s = 0; s < NS; ++s) {
     mbar_init(&bar.full[s], 1);
-    mbar_init(&bar.empty[s], CONSUMERS / 32);
+    mbar_init(&bar.empty[s], CLUSTER * CONSUMERS / 32);
   }
   mbar_init(&bar.a_full, 1);
   mbar_fence_init();
@@ -149,6 +178,36 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da, uint64_t
       : "l"(da), "l"(db), "r"(acc));
 }
 
+// d (64 x 128, f32) = A . B^T + (acc ? d : 0) with A from registers: the
+// thread's fragment of its warp's 16 rows x 16 of depth (rows g, g + 8;
+// depth 2q, 2q + 1 and 2q + 8, 2q + 9, the lower index in the low half)
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                              int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
 // the same with 64 codebook rows
 __device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t da, uint64_t db, int acc) {
   asm volatile(
@@ -169,6 +228,17 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t da, uint64_t
       : "l"(da), "l"(db), "r"(acc));
 }
 
+// A consumer warp releases stage `it`: one arrival on the stage's empty
+// barrier of every block of the cluster (lane r on block r's)
+template <int CLUSTER, int NS>
+__device__ __forceinline__ void release_stage(RingOf<NS>& bar, int it, int lane) {
+  if constexpr (CLUSTER == 1) {
+    if (lane == 0) mbar_arrive(&bar.empty[it % NS]);
+  } else {
+    if (lane < CLUSTER) mbar_arrive_cluster(&bar.empty[it % NS], lane);
+  }
+}
+
 // The search of row block rb (rows rb * BM .. +BM - 1) by the first
 // THREADS threads of a block over a fresh ring `bar` (initialised, then a
 // barrier) and `smem` (Cfg<S>::SMEM_BYTES of dynamic shared memory).
@@ -176,9 +246,19 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t da, uint64_t
 // are issued, the consumers once the rows are written. No block barrier
 // inside. slab: K1-kb's chunks per slab (kblock / BK); unused by the
 // others. idx2_out, val2_out: K2's runner-up; unused by the others.
-template <Search S>
+// RA > 0: A in registers, RA chunks deep (nk == RA); the ring carries the
+// codebook chunks alone.
+// CLUSTER > 1: the block is one of a cluster launched with one row block
+// each (its ring from ring_init<CLUSTER>, behind a cluster barrier, and a
+// cluster barrier after the search, so that no block exits while another
+// can still arrive on its barriers); the producer of rank r copies part r
+// of each codebook chunk into every block's stage. A block whose row
+// block lies past the rows (the last of an odd count: the laid-out A ends
+// at the last row block) loads no A and writes nothing, but feeds the
+// others their parts and releases its stages.
+template <Search S, int CLUSTER = 1, int RA = 0, int NS>
 __device__ __forceinline__ void search_rows(
-    Ring& bar, unsigned char* smem, int rb, const __nv_bfloat16* __restrict__ a,
+    RingOf<NS>& bar, unsigned char* smem, int rb, const __nv_bfloat16* __restrict__ a,
     const __nv_bfloat16* __restrict__ a_lo, const __nv_bfloat16* __restrict__ w,
     const __nv_bfloat16* __restrict__ w_lo, const float* __restrict__ w_sq, int n, int k16,
     int xy, int resident, int slab, int* __restrict__ idx_out, float* __restrict__ val_out,
@@ -188,8 +268,11 @@ __device__ __forceinline__ void search_rows(
   constexpr bool SPLIT3 = S == Search::SPLIT3;
   constexpr bool TOP2 = S == Search::TOP2;
   constexpr bool KB = S == Search::KBLOCKED;
+  constexpr bool FEED = S == Search::FEED;
+  constexpr bool REGA = RA > 0;  // A in registers, RA chunks deep (nk == RA)
   uint64_t* full = bar.full;
   uint64_t* empty = bar.empty;
+  const bool rows = CLUSTER == 1 || rb * BM < n;  // the block has rows to search
 
   const int tid = threadIdx.x;
   // the warpgroup (2: the producer warp), read through a shuffle so the
@@ -201,32 +284,42 @@ __device__ __forceinline__ void search_rows(
   const int total = nk * ntiles;
   // resident: A tile (OPS halves of BM x k16), then the ring of W chunks
   const int a_bytes = BM * k16 * 2;  // one half's A tile
-  unsigned char* ring = resident ? smem + C::OPS * a_bytes : smem;
-  const int stage_bytes = C::OPS * (C::B_CHUNK + (resident ? 0 : C::A_CHUNK));
+  unsigned char* ring = resident && !REGA ? smem + C::OPS * a_bytes : smem;
+  const int stage_bytes = C::OPS * (C::B_CHUNK + (resident || REGA ? 0 : C::A_CHUNK));
 
   if (wg == CONSUMERS / 128) {  // the producer warp: one thread issues every copy
     if (tid != CONSUMERS) return;
     const __nv_bfloat16* ga[2] = {a, a_lo};
     const __nv_bfloat16* gw[2] = {w, w_lo};
     const size_t a_tile = (size_t)rb * BM * k16;  // this row block's A tile
-    if (resident) {
+    // the part of each codebook chunk this block reads (of CLUSTER)
+    const uint32_t rank = CLUSTER > 1 ? cluster_rank() : 0;
+    if (resident && rows && !REGA) {
       mbar_expect_tx(&bar.a_full, C::OPS * a_bytes);
 #pragma unroll
       for (int h = 0; h < C::OPS; ++h) bulk_copy(smem + h * a_bytes, ga[h] + a_tile, a_bytes, &bar.a_full);
     }
     for (int it = 0; it < total; ++it) {
-      const int s = it % STAGES;
-      if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
+      const int s = it % NS;
+      if (it >= NS) mbar_wait(&empty[s], ((it / NS) - 1) & 1);
       const int tile = it / nk, c = it - (it / nk) * nk;
       const int dc = min(BK, k16 - c * BK);
       const int b_bytes = BN * dc * 2, ac_bytes = BM * dc * 2;
       unsigned char* st = ring + s * stage_bytes;
-      mbar_expect_tx(&full[s], C::OPS * (b_bytes + (resident ? 0 : ac_bytes)));
+      // the whole B chunk lands in every block, A only where there are rows
+      mbar_expect_tx(&full[s], C::OPS * (b_bytes + (resident || REGA || !rows ? 0 : ac_bytes)));
 #pragma unroll
       for (int h = 0; h < C::OPS; ++h) {
-        bulk_copy(st + h * C::B_CHUNK, gw[h] + (size_t)tile * BN * k16 + (size_t)BN * c * BK,
-                  b_bytes, &full[s]);
-        if (!resident)
+        const __nv_bfloat16* chunk = gw[h] + (size_t)tile * BN * k16 + (size_t)BN * c * BK;
+        if constexpr (CLUSTER > 1) {
+          // BN * dc / CLUSTER values: a multiple of 8 (16 bytes), dc being one of 16
+          const int part = BN * dc / CLUSTER;
+          bulk_copy_multicast(st + h * C::B_CHUNK + rank * part * 2, chunk + rank * part, part * 2,
+                              &full[s], static_cast<uint16_t>((1u << CLUSTER) - 1));
+        } else {
+          bulk_copy(st + h * C::B_CHUNK, chunk, b_bytes, &full[s]);
+        }
+        if (!resident && !REGA && rows)
           bulk_copy(st + C::OPS * C::B_CHUNK + h * C::A_CHUNK, ga[h] + a_tile + (size_t)BM * c * BK,
                     ac_bytes, &full[s]);
       }
@@ -236,6 +329,15 @@ __device__ __forceinline__ void search_rows(
 
   // consumers: warpgroup wg owns rows wg*64 .. +63 of the block
   const int lane = tid & 31;
+  auto release = [&](int it) { release_stage<CLUSTER>(bar, it, lane); };
+  if (FEED || !rows) {
+    // every stage waited for and released at once: no rows to search
+    for (int it = 0; it < total; ++it) {
+      mbar_wait(&full[it % NS], (it / NS) & 1);
+      release(it);
+    }
+    return;
+  }
   const int g = lane >> 2;  // accumulator row within the warp's 16
   const int q = lane & 3;   // quad lane: columns 2q, 2q + 1 of each 8
   const int row_w = wg * 64 + ((tid >> 5) & 3) * 16 + g;  // this thread's first row
@@ -258,19 +360,16 @@ __device__ __forceinline__ void search_rows(
   float best2[2] = {INFINITY, INFINITY};
   int besti2[2] = {INT_MAX, INT_MAX};
 
-  auto release = [&](int it) {
-    if (lane == 0) mbar_arrive(&empty[it % STAGES]);
-  };
   // K1-kb: chunk c is the last of its slab (K's last chunk is checked apart)
   auto slab_end = [&](int c) { return KB && c % slab == slab - 1; };
 
   // wait for stage it (chunk c of its tile) and issue its wgmmas into ac,
   // as one commit group
   auto issue = [&](Acc& ac, int it, int c) {
-    const int s = it % STAGES;
+    const int s = it % NS;
     const int dc = min(BK, k16 - c * BK);
     const uint32_t sbo = 16u * dc;  // bytes between 8-row groups of this chunk
-    mbar_wait(&full[s], (it / STAGES) & 1);
+    mbar_wait(&full[s], (it / NS) & 1);
     const unsigned char* st = ring + s * stage_bytes;
     // this warpgroup's 64 rows of the A chunk (8 groups of 8 rows), per half
     const unsigned char* a_c[2];
@@ -392,31 +491,87 @@ __device__ __forceinline__ void search_rows(
     }
   };
 
-  if (resident) mbar_wait(&bar.a_full, 0);
-  for (int it = 0; it < total; ++it) {
-    const int tile = it / nk, c = it - (it / nk) * nk;
-    issue(acc, it, c);
-    // the wgmmas of it - 1 are retired (of it too where a tile or a slab
-    // ends); it - 1 was released already if it ended a tile or a slab
-    const bool ends = c == nk - 1 || slab_end(c);
-    if (ends) {
-      wgmma_wait<0>();
-    } else {
-      wgmma_wait<1>();
-    }
-    if (c != 0 && !slab_end(c - 1)) release(it - 1);
-    if (ends) {
-      release(it);
-      if constexpr (KB) {
-        fence_acc(acc[0]);
+  if constexpr (REGA) {
+    // this thread's A fragment of each 16-deep step j (rows row_w and
+    // row_w + 8, depth 2q, 2q + 1 and 2q + 8, 2q + 9), read once from the
+    // laid-out A: value (r, k) of the block's tile lies in chunk
+    // c = k / BK, 8-row group r / 8 (dc values a row), core matrix
+    // (k % BK) / 8
+    uint32_t af[RA * 4][4];
+    const uint32_t* a32 = reinterpret_cast<const uint32_t*>(a);
 #pragma unroll
-        for (int i = 0; i < C::REGS; ++i) run[i] = __fadd_rn(run[i], acc[0][i]);
+    for (int j = 0; j < RA * 4; ++j) {
+      const int c = j / 4;
+      const int dc = min(BK, k16 - c * BK);
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int r = row_w + (h & 1) * 8;
+        const int k = j * 16 + (h >> 1) * 8 + 2 * q;
+        const size_t off = (size_t)rb * BM * k16 + (size_t)c * BM * BK + (r >> 3) * 8 * dc +
+                           ((k % BK) >> 3) * 64 + (r & 7) * 8 + (k & 7);
+        af[j][h] = j * 16 < k16 ? __ldg(a32 + off / 2) : 0u;
       }
-      if (c == nk - 1) {
-        finish(acc, tile);
-        if constexpr (KB) {
+    }
+    // K1's loop with the chunks unrolled, so that each step's fragment is
+    // a register
+    for (int tile = 0; tile < ntiles; ++tile) {
 #pragma unroll
-          for (int i = 0; i < C::REGS; ++i) run[i] = 0.0f;
+      for (int c = 0; c < RA; ++c) {
+        const int it = tile * RA + c;
+        const int s = it % NS;
+        const int dc = min(BK, k16 - c * BK);
+        const uint32_t sbo = 16u * dc;
+        mbar_wait(&full[s], (it / NS) & 1);
+        const unsigned char* st = ring + s * stage_bytes;
+        fence_acc(acc[0]);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < BK / 16; ++ks) {
+          if (ks * 16 < dc) {
+            const uint64_t db = smem_desc(st + ks * 2 * LBO_BYTES, LBO_BYTES, sbo);
+            wgmma_bf16_rs(acc[0], af[c * 4 + ks], db, c != 0 || ks != 0);
+          }
+        }
+        wgmma_commit();
+        if (c == RA - 1) {
+          wgmma_wait<0>();
+        } else {
+          wgmma_wait<1>();
+        }
+        if (c != 0) release(it - 1);
+        if (c == RA - 1) {
+          release(it);
+          finish(acc, tile);
+        }
+      }
+    }
+  } else {
+    if (resident) mbar_wait(&bar.a_full, 0);
+    for (int it = 0; it < total; ++it) {
+      const int tile = it / nk, c = it - (it / nk) * nk;
+      issue(acc, it, c);
+      // the wgmmas of it - 1 are retired (of it too where a tile or a slab
+      // ends); it - 1 was released already if it ended a tile or a slab
+      const bool ends = c == nk - 1 || slab_end(c);
+      if (ends) {
+        wgmma_wait<0>();
+      } else {
+        wgmma_wait<1>();
+      }
+      if (c != 0 && !slab_end(c - 1)) release(it - 1);
+      if (ends) {
+        release(it);
+        if constexpr (KB) {
+          fence_acc(acc[0]);
+#pragma unroll
+          for (int i = 0; i < C::REGS; ++i) run[i] = __fadd_rn(run[i], acc[0][i]);
+        }
+        if (c == nk - 1) {
+          finish(acc, tile);
+          if constexpr (KB) {
+#pragma unroll
+            for (int i = 0; i < C::REGS; ++i) run[i] = 0.0f;
+          }
         }
       }
     }

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) primitives shared by the wgmma searches: K4
 // (highest.cu) and K1, K3 (gemm_sm90.cu). One copy of each inline-PTX
-// helper: shared-memory addresses, bulk copies and mbarriers, wgmma
+// helper: shared-memory addresses, bulk copies and mbarriers, the
+// cluster's rank, barrier, multicast copy and remote arrival, wgmma
 // shared-memory descriptors, and the accumulator fence.
 
 #pragma once
@@ -56,6 +57,45 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes,
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
       ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Thread-block clusters. The block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster: arrive (release), then wait
+// (acquire). Not .aligned: a warp's lanes may reach it apart.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// bulk_copy read once from global memory and written to the same offset
+// of the shared memory of every block of the cluster in `mask`, each
+// block's bytes counted on its mbarrier at bar's offset
+__device__ __forceinline__ void bulk_copy_multicast(void* dst, const void* src, int bytes,
+                                                    uint64_t* bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+      "[%0], [%1], %2, [%3], %4;" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes),
+      "r"(smem_addr(bar)), "h"(mask)
+      : "memory");
+}
+
+// one arrival on the mbarrier at bar's offset in block `rank` of the
+// cluster, this block's own included, with mbarrier.arrive's default
+// semantics (release at CTA scope). Release at cluster scope
+// (.release.cluster) made each arrival a fence: on one H100 it slowed a
+// pair's feed and K1 about twofold.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n"
+      ::"r"(smem_addr(bar)), "r"(rank)
       : "memory");
 }
 

@@ -23,6 +23,8 @@ __all__ = [
     "scatter_stats",
     "bmu_stats_fused",
     "KERNELS",
+    "FED",
+    "FEEDS",
     "launch_counts",
     "reset_launch_counts",
 ]
@@ -43,10 +45,26 @@ KERNELS = {
 }
 
 
+# the searches that count their launches by feed (``bmu.search_feed``):
+# each wrapper's ``paired`` counts those that ran as pairs of row blocks
+# sharing each codebook chunk, ``registers`` those that held A in registers
+FED = ("bmu_argmin", "bmu_top2")
+FEEDS = ("paired", "registers")
+
+
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    """Each kernel's launches by name, and ``<name>.paired`` and
+    ``<name>.registers`` for each search of ``FED``: how many of its
+    launches ran on those feeds."""
+    counts = {name: fn.launches for name, fn in KERNELS.items()}
+    counts.update({f"{name}.{feed}": getattr(KERNELS[name], feed) for name in FED
+                   for feed in FEEDS})
+    return counts
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    for name in FED:
+        for feed in FEEDS:
+            setattr(KERNELS[name], feed, 0)

@@ -75,6 +75,7 @@ __all__ = [
     "lay_out",
     "lay_out_plain",
     "lay_out_samples",
+    "search_feed",
     "bmu_argmin",
     "bmu_argmin_plain",
     "bmu_argmin_kb",
@@ -219,6 +220,30 @@ GEMM_BK = 64
 K1_BN = 128
 K3_BN = 64
 RESIDENT_K = 256
+# K1's and K2's feeds (csrc/gemm_sm90.cuh Feed): A streamed beside each
+# codebook chunk, one block a row block; pairs of row blocks (a cluster of
+# two) that share each codebook chunk; A held in registers, one block a row
+# block, up to REGISTER_K of padded depth. search_feed picks one.
+FEED_STREAMED, FEED_PAIRS, FEED_REGISTERS = 0, 1, 2
+REGISTER_K = 256
+# the H100's L2 cache: the pairs pay where the laid-out codebook exceeds it
+L2_BYTES = 50 * 2**20
+
+
+def search_feed(n, k, xy):
+    """K1's and K2's feed for ``n`` sample rows against ``xy`` codebook
+    rows at depth ``k``, from what one H100 measured (PERF.md, §6): A in
+    registers wherever it fits (``k`` padded to 16 at most REGISTER_K),
+    which cut K1 by a fifth at the flagship chunk, where pairs were slower;
+    else pairs where the rows span two row blocks or more and the laid-out
+    codebook exceeds L2 (``websom-fit``'s), where they were faster; else A
+    streamed, one block a row block."""
+    k16 = _round_up(k, 16)
+    if k16 <= REGISTER_K:
+        return FEED_REGISTERS
+    if -(-n // GEMM_BM) >= 2 and _round_up(xy, K1_BN) * k16 * 2 > L2_BYTES:
+        return FEED_PAIRS
+    return FEED_STREAMED
 
 
 def lay_out_plain(t, trows):
@@ -380,10 +405,11 @@ def _gemm_sm90(entry, operands, n, k, xy, *ints, outs=2):
     (``xps_gemm_argmin``), K3 (``xps_gemm_split3``), K2 (``xps_gemm_top2``)
     or K1-kb (``xps_gemm_argmin_kb``). ``operands``: the tensors whose
     pointers lead the call (the sample halves, the codebook halves, K3's
-    ``w_sq``); ``ints``: the entry's trailing int arguments (K1, K3:
-    ``resident``, which keeps each block's A in shared memory up to
-    RESIDENT_K of depth; K1-kb: ``kblock``). Returns ``(idx, val)``, or
-    with ``outs=4`` K2's ``(idx, val, idx2, val2)``."""
+    ``w_sq``); ``ints``: the entry's trailing int arguments (K1, K2: the
+    feed, :func:`search_feed`; K3: ``resident``, which keeps each block's A
+    in shared memory up to RESIDENT_K of depth; K1-kb: ``kblock``).
+    Returns ``(idx, val)``, or with ``outs=4`` K2's ``(idx, val, idx2,
+    val2)``."""
     dev = operands[0].device
     out = [torch.empty(n, dtype=(torch.int32, _F32)[i % 2], device=dev) for i in range(outs)]
     rc = getattr(build.load_library(), entry)(
@@ -412,10 +438,21 @@ def bmu_argmin(a, w_aug, xy, w_laid=None):
 
     Source note: replaces ``_kernel_gemm_argmin`` (xpysom_dask_tpu/ops/
     pallas/bmu.py). On the H100 the tensor cores bound it (1.1e11 bf16
-    operations per flagship chunk, 0.113 ms). csrc/gemm_sm90.cu: a pre-pass lays A and W_aug out in wgmma's
-    canonical layout, one producer thread streams both through a 4-stage
-    ring of bulk copies on mbarriers, two consumer warpgroups run wgmma
-    m64n128k16, and the argmin is finished in the accumulator registers."""
+    operations per flagship chunk, 0.113 ms). csrc/gemm_sm90.cu: a
+    pre-pass lays A and W_aug out in wgmma's canonical layout; each block
+    of two consumer warpgroups (128 sample rows) walks every codebook tile,
+    one producer thread bulk-copying the chunks into a ring on mbarriers,
+    the consumers running wgmma m64n128k16 and finishing the argmin in the
+    accumulator registers. Its feed (:func:`search_feed`) follows the
+    shape: up to a padded depth of 256 each warpgroup holds its rows of A
+    in registers (wgmma with A from registers) and the ring carries the
+    codebook alone, which halves what a block reads a stage and what the
+    tensor cores read from shared memory; past that A streams beside each
+    codebook chunk, and where the codebook exceeds L2 the blocks run as
+    pairs (clusters of two) that share each codebook chunk, each
+    producer multicasting half of it into both blocks' rings. No feed
+    changes an operand or the order of the sums: the winners and values
+    are the same bits on every feed."""
     _check_operands(a, w_aug, xy)
     if a.device.type == "cpu":
         return bmu_argmin_plain(a, w_aug, xy)
@@ -429,13 +466,22 @@ def _launch_k1(a_laid, w_laid, n, k, xy):
     """K1 on laid-out operands, counted on ``bmu_argmin``."""
     if n == 0:
         return _empty_result(a_laid.device)
-    # K1 streams its A (measured faster than keeping it resident)
-    out = _gemm_sm90("xps_gemm_argmin", (a_laid, w_laid), n, k, xy, False)
-    bmu_argmin.launches += 1
+    feed = search_feed(n, k, xy)
+    out = _gemm_sm90("xps_gemm_argmin", (a_laid, w_laid), n, k, xy, feed)
+    _count_feed(bmu_argmin, feed)
     return out
 
 
+def _count_feed(fn, feed):
+    """One launch of ``fn`` (K1 or K2) on ``feed``."""
+    fn.launches += 1
+    fn.paired += int(feed == FEED_PAIRS)
+    fn.registers += int(feed == FEED_REGISTERS)
+
+
 bmu_argmin.launches = 0
+# the launches that ran as pairs of row blocks; with A in registers
+bmu_argmin.paired = bmu_argmin.registers = 0
 
 # the modes whose operands K1-kb takes (the JAX package's kblock rule)
 _KB_MODES = ("packed", "bf16")
@@ -522,10 +568,10 @@ def bmu_top2(a, w_aug, xy, w_laid=None):
 
     Source note: replaces ``_kernel_gemm_top2`` (xpysom_dask_tpu/ops/
     pallas/bmu.py). K1's wgmma search (csrc/gemm_sm90.cu, variant TOP2) on
-    the same laid-out operands and bound, with a top-2 finish in
-    registers: each thread keeps two (value, index) places over its
-    columns, the quad and the running pair merge lexicographically. Its
-    first place is K1's bit for bit."""
+    the same laid-out operands, bound and feeds (:func:`search_feed`),
+    with a top-2 finish in registers: each thread keeps two (value, index)
+    places over its columns, the quad and the running pair merge
+    lexicographically. Its first place is K1's bit for bit."""
     _check_operands(a, w_aug, xy)
     if a.device.type == "cpu":
         return bmu_top2_plain(a, w_aug, xy)
@@ -539,12 +585,14 @@ def _launch_k2(a_laid, w_laid, n, k, xy):
     """K2 on laid-out operands, counted on ``bmu_top2``."""
     if n == 0:
         return (*_empty_result(a_laid.device), *_empty_result(a_laid.device))
-    out = _gemm_sm90("xps_gemm_top2", (a_laid, w_laid), n, k, xy, outs=4)
-    bmu_top2.launches += 1
+    feed = search_feed(n, k, xy)
+    out = _gemm_sm90("xps_gemm_top2", (a_laid, w_laid), n, k, xy, feed, outs=4)
+    _count_feed(bmu_top2, feed)
     return out
 
 
 bmu_top2.launches = 0
+bmu_top2.paired = bmu_top2.registers = 0
 
 
 def bmu_split3_plain(xh, xl, wh, wl, w_sq, xy):

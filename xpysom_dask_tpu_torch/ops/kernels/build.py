@@ -45,7 +45,8 @@ _SIGNATURES = {
     "xps_pack_layout": (_P, _L, _P, _I, _I, _I, _I, _I, _I, _P, _P),
     "xps_gemm_argmin": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
     "xps_gemm_split3": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
-    "xps_gemm_top2": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
+    "xps_gemm_top2": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    "xps_gemm_feed": (_P, _P, _I, _I, _I, _I, _P),
     "xps_gemm_argmin_kb": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
     "xps_scatter_stats": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
     "xps_bmu_highest": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),

@@ -205,7 +205,9 @@ def epoch_anatomy(som, data, *, lo=2, hi=8, reps=3):
     - derived: ``scatter_ms = stats - bmu``, ``update_ms = epoch - stats``;
     - ``<stage>_method``: how the stage was timed, as in the JAX package;
     - ``<stage>_launches``: each kernel's launches during that stage
-      (warm-up included; empty on the CPU, where the plain versions run).
+      (warm-up included; empty on the CPU, where the plain versions run),
+      with ``bmu_argmin.registers`` or ``.paired`` for K1's feed
+      (``ops.kernels.bmu.search_feed``).
 
     Method (the JAX package's): each stage runs ``lo`` and ``hi`` times
     back to back inside one timed window; the best of ``reps`` windows at
