@@ -2645,7 +2645,10 @@ def _busy_share(torch, prof, wall_s):
                 cur_e = max(cur_e, e)
         return busy + (0 if cur_e is None else cur_e - cur_s)
 
-    dev = [e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    # the program's spans (``annotate``) appear as device-side user
+    # annotations that cover whole calls: they are not device work
+    dev = [e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")
+           and not getattr(e, "is_user_annotation", False)]
     copies = [(e.time_range.start, e.time_range.end) for e in dev if e.name.startswith("Memcpy")]
     kernels = [(e.time_range.start, e.time_range.end) for e in dev
                if not e.name.startswith(("Memcpy", "Memset"))]
@@ -2708,15 +2711,15 @@ def phase_streaming(torch, card, workdir):
     print(f"loader (FileSource, native, {src.n_buffers} buffers, superbatches of {rows} rows) "
           f"disk to host: {cold:.1f} MB/s after dropping the file's pages ({cold_s:.3f} s), "
           f"{warm:.1f} MB/s from the page cache ({warm_s:.3f} s) ({card})")
-    # the feed alone: the loader, the pinned buffers' fill and the uploads
-    # on the copy stream, no kernel
+    # the feed alone: the loader, the pinned ring's fill and the uploads on
+    # the side stream, no kernel
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fed = sum(n for _, _, n in device_superbatches(src, rows, f["chunk"], torch.device("cuda")))
     torch.cuda.synchronize()
     feed_s = time.perf_counter() - t0
     require(fed == STREAM_N, f"the feed delivered {fed} rows")
-    print(f"feed alone (loader, pinned buffers, copy stream; no kernel): {feed_s * 1e3:.3f} ms "
+    print(f"feed alone (loader, pinned ring, side stream; no kernel): {feed_s * 1e3:.3f} ms "
           f"for {STREAM_N} rows = {data.nbytes / feed_s / 1e6:.1f} MB/s ({card})")
 
     kernels.reset_launch_counts()

@@ -5,7 +5,7 @@ examples/large_scale_streaming.py.
 
 Demonstrates the replacements for the reference's Dask layer:
 - FileSource: the native C++ double-buffered reader over a binary
-  dataset, fed to the card through pinned buffers
+  dataset, fed to the card through the feed's pinned ring
 - mesh='auto': data parallel over the processes of the default
   torch.distributed group (one process, a world of one, without one)
 - a portable checkpoint (the .npz format either package reads)

@@ -12,11 +12,11 @@ wraps, on a fresh ring per row block), 200 x 100 and 200 x 200 nodes (the
 latter 313 ranges of 128 nodes: some groups take two) and D = 200 (two
 column passes, 373 ranges of 44 nodes; K = 603).
 
-The streaming pipeline on the card (pinned buffers and a copy stream):
-streamed training, ``predict`` and ``activation_response`` of the
-flagship map equal the resident ones bit for bit (2^18 rows and a ragged
-5000-row tail, superbatches of 2^16); and checkpoint resume equals the
-uninterrupted run bit for bit. Streamed ``predict`` and
+The streaming pipeline on the card (the feed's pinned ring on a side
+stream): streamed training, ``predict`` and ``activation_response`` of
+the flagship map equal the resident ones bit for bit (2^18 rows and a
+ragged 5000-row tail, superbatches of 2^16); and checkpoint resume
+equals the uninterrupted run bit for bit. Streamed ``predict`` and
 ``activation_response`` keep one superbatch's winners on the card and
 two in pinned host memory: neither peak grows from N rows to 4N.
 
@@ -38,10 +38,10 @@ row blocks sharing each codebook chunk, A in registers) on 1, 2, 3 and
 129 row blocks, and the routed launches count the feed ``search_feed``
 picks.
 
-The resident feed on the card: its pinned ring is made once and reused by
-the next call, and the chunks and mask it makes through the ring (rows
-not a multiple of its slice, and a request under one slice) equal the
-CPU feed's bit for bit."""
+The resident and the streamed feed on the card: the pinned ring is made
+once and reused by the next call, and the chunks and mask each feed makes
+through the ring (rows not a multiple of its slice, and a request under
+one slice) equal the CPU feed's bit for bit."""
 
 import numpy as np
 import pytest
@@ -176,9 +176,10 @@ def test_checkpoint_resume_bitwise(card, tmp_path):
 
 def test_streamed_scoring_memory_does_not_grow_with_rows(card):
     """The card holds one superbatch's winners, and a call hands out two
-    superbatches' pinned staging buffers (and the feed's two) however many
-    superbatches it streams: from N to 4N rows neither the card's peak
-    nor the pinned bytes handed out grow by one superbatch's winners."""
+    superbatches' pinned staging buffers (the feed's ring is made once a
+    process) however many superbatches it streams: from N to 4N rows
+    neither the card's peak nor the pinned bytes handed out grow by one
+    superbatch's winners."""
     rows = 1 << 15
     som = XPySom(32, 32, 16, sigma=8, random_seed=3)
     som._superbatch_rows = lambda: rows
@@ -311,8 +312,20 @@ def test_epoch_anatomy_launches_each_stage_its_kernels(card, activation, search)
     np.testing.assert_array_equal(som.get_weights().view(np.int64), w0.view(np.int64))
 
 
-def test_resident_feed_reuses_its_ring_and_equals_the_cpu_feed(card, monkeypatch):
+def _resident_feed(data, device):
     from xpysom_dask_tpu_torch.models.som import _chunks_on
+
+    return [_chunks_on(data, 1024, None, device)]
+
+
+def _streamed_feed(data, device):
+    from xpysom_dask_tpu_torch.parallel.pipeline import device_superbatches
+
+    return list(device_superbatches(ArraySource(data), 9 * 1024, 1024, device))
+
+
+@pytest.mark.parametrize("feed", [_resident_feed, _streamed_feed], ids=["resident", "streamed"])
+def test_resident_feed_reuses_its_ring_and_equals_the_cpu_feed(card, monkeypatch, feed):
     from xpysom_dask_tpu_torch.parallel import pipeline
 
     d = 64
@@ -323,13 +336,15 @@ def test_resident_feed_reuses_its_ring_and_equals_the_cpu_feed(card, monkeypatch
              rng.rand(1000, d).astype(np.float32)]  # a request under one slice
     slots = None
     for data in calls:
-        chunks, mask, n = _chunks_on(data, 1024, None, card)
+        got = feed(data, card)
         (ring,) = pipeline._RINGS.values()
         if slots is None:
             slots = [s.data_ptr() for s in ring.slots]
             assert all(s.is_pinned() and s.numel() == 4096 * d for s in ring.slots)
         assert [s.data_ptr() for s in ring.slots] == slots  # the same pinned memory
-        want_chunks, want_mask, want_n = _chunks_on(data, 1024, None, torch.device("cpu"))
-        assert n == want_n and chunks.device.type == mask.device.type == "cuda"
-        assert torch.equal(chunks.cpu().view(torch.int32), want_chunks.view(torch.int32))
-        assert torch.equal(mask.cpu().view(torch.int32), want_mask.view(torch.int32))
+        want = feed(data, torch.device("cpu"))
+        assert len(got) == len(want)
+        for (chunks, mask, n), (want_chunks, want_mask, want_n) in zip(got, want):
+            assert n == want_n and chunks.device.type == mask.device.type == "cuda"
+            assert torch.equal(chunks.cpu().view(torch.int32), want_chunks.view(torch.int32))
+            assert torch.equal(mask.cpu().view(torch.int32), want_mask.view(torch.int32))

@@ -130,15 +130,29 @@ def test_iterable_source_reblocks():
         next(IterableSource(factory, 100, 3).superbatches(40))
 
 
-def test_device_superbatches_on_the_cpu_are_chunk_data():
-    data = np.random.RandomState(3).rand(150, 3).astype(np.float32)
-    got = list(pipeline.device_superbatches(ArraySource(data), 64, 32, "cpu"))
-    assert [n for _, _, n in got] == [64, 64, 22]
-    for (chunks, mask, n), s in zip(got, (0, 64, 128)):
-        want_c, want_m, _ = chunk_data(data[s : s + 64], 32)
+_SUPER = np.random.RandomState(3).rand(150, 3).astype(np.float32)
+
+
+@pytest.mark.parametrize("synced", [
+    None,  # ArraySource's own superbatches of 64 rows: 64, 64, 22
+    [(_SUPER[:40], 5)],  # a rank's block padded to the chunk count the ranks agreed on
+    [(np.zeros((0, 3), np.float32), 2)],  # a rank that has run out: fully masked chunks
+], ids=["source", "min_chunks", "empty"])
+def test_device_superbatches_on_the_cpu_are_chunk_data(synced, monkeypatch):
+    if synced is None:
+        want = [(_SUPER[s : s + 64], 1) for s in (0, 64, 128)]
+    else:
+        monkeypatch.setattr(pipeline, "_synced_superbatches", lambda *a: iter(synced))
+        want = synced
+    got = list(pipeline.device_superbatches(ArraySource(_SUPER), 64, 32, "cpu"))
+    assert [n for _, _, n in got] == [len(block) for block, _ in want]
+    for (chunks, mask, n), (block, min_chunks) in zip(got, want):
+        want_c, want_m, _ = chunk_data(block, 32, min_chunks=min_chunks)
         assert chunks.device.type == "cpu" and chunks.dtype == torch.float32
         np.testing.assert_array_equal(chunks.numpy(), want_c)
         np.testing.assert_array_equal(mask.numpy(), want_m)
+        if not n:
+            assert chunks.shape == (min_chunks, 32, 3) and not chunks.any() and not mask.any()
 
 
 def test_epoch_timer_and_trace(tmp_path):

@@ -64,10 +64,10 @@ from ..parallel.mesh import (
 )
 from ..parallel.pipeline import (
     ArraySource,
+    _feed,
     default_superbatch_rows,
     device_superbatches,
     train_streaming,
-    upload_padded,
 )
 from ..utils import serialization
 from ..utils.hw import default_n_parallel, resolve_device, round_up, training_chunk
@@ -82,14 +82,14 @@ _HEX_NEIGS = ("gaussian", "mexican_hat", "bubble")
 
 def _chunks_on(data2d: np.ndarray, chunk: int, mesh, device):
     """``core.chunk_data``'s (C, chunk, D) chunks, (C, chunk) float32 mask
-    and row count, made on ``device``: the caller's rows copied straight
-    into the padded chunks (``pipeline.upload_padded``: no padded copy on
-    the host), the padding zeroed and the mask built on the device. With a
-    mesh, the chunk count padded to a multiple of the world size (the last
-    rank's extra chunks fully masked: their statistics are exact zeros) and
-    only this rank's block, of its rows alone, on the rank's device. Over a
-    grid the blocks are the data indices': every rank of a model group gets
-    the same one."""
+    and row count, made on ``device`` by the pipeline's feed
+    (``pipeline._feed``: the caller's rows copied straight into the padded
+    chunks, no padded copy on the host). With a mesh, the chunk count
+    padded to a multiple of the world size (the last rank's extra chunks
+    fully masked: their statistics are exact zeros) and only this rank's
+    block, of its rows alone, on the rank's device. Over a grid the blocks
+    are the data indices': every rank of a model group gets the same
+    one."""
     if isinstance(mesh, GridMesh):
         mesh = mesh.data
     rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world)
@@ -102,10 +102,8 @@ def _chunks_on(data2d: np.ndarray, chunk: int, mesh, device):
     if mesh is not None:
         device = mesh.device
     with annotate("xpysom.upload", bytes=(hi - lo) * d * 4):
-        chunks = upload_padded(data2d[lo:hi], per, device)
-        mask = torch.ones(per, dtype=torch.float32, device=chunks.device)
-        mask[hi - lo :].zero_()
-    return chunks.view(c, chunk, d), mask.view(c, chunk), n
+        chunks, mask = _feed(data2d[lo:hi], c, chunk, device)
+    return chunks, mask, n
 
 
 def _scalar_ratio(total, count) -> float:
@@ -476,10 +474,11 @@ class XPySom:
 
     def _stream(self, src, chunk=None):
         """The superbatches of ``src`` on the device as ``(chunks, mask,
-        n)``, through the pipeline's feed (pinned buffers and a copy stream
-        on the card). ``chunk`` overrides the budget ``n_parallel``. Every
-        streamed scoring path comes through here, so the multi-process
-        guard is checked here, before the first superbatch."""
+        n)``, through the pipeline's streamed feed (the pinned ring on a
+        side stream on the card). ``chunk`` overrides the budget
+        ``n_parallel``. Every streamed scoring path comes through here, so
+        the multi-process guard is checked here, before the first
+        superbatch."""
         self._guard_multihost_streaming_inference()
         rows = self._superbatch_rows()
         chunk = training_chunk(rows, chunk or self._n_parallel)

@@ -11,21 +11,20 @@ chunks' partials are added in the resident epoch's order and
 association: with superbatches of whole chunks, streamed training equals
 resident training bit for bit.
 
-Feeding the card (:func:`device_superbatches`): each superbatch is
-written, padded to whole chunks, into one of two pinned host buffers and
-copied to the card on a side stream, so superbatch k + 1 uploads while the
-kernels of superbatch k run. The compute stream waits on the copy's
-event; the device tensor is marked with ``record_stream`` so its memory is
-not reused before the kernels that read it have finished, and a pinned
-buffer is refilled only after the copy out of it has finished. On the CPU
-the feed is a plain loop.
-
-Resident host arrays (:func:`upload_padded`, the API's chunks) take no
-padded copy on the host: the caller's rows go slice by slice through a
-pinned ring of two ``STAGE_BYTES`` slots, made once a process and card and
-shared by every call and model, straight into the padded device tensor;
-the padding is zeroed on the card. The copies run on the current stream:
-an API call's feed has no kernels of its own to overlap.
+Feeding the card: one feed (:func:`_feed`) makes a block of host rows
+into ``core.chunk_data``'s padded chunks and mask on the device, for the
+API's resident arrays and for streamed superbatches alike. It takes no
+padded copy on the host: on a card the caller's rows go slice by slice
+through a pinned ring of two ``STAGE_BYTES`` slots
+(:func:`upload_padded`), made once a process and card and shared by every
+call and model, straight into the padded device tensor; the padding is
+zeroed and the mask built on the card. The ring copies on the current
+stream: an API call's feed has no kernels of its own to overlap. The
+streamed feed (:func:`device_superbatches`) makes its own side stream
+current around the feed, so superbatch k + 1 uploads while the kernels of
+superbatch k run; the compute stream waits on the feed's event, and the
+device tensors are marked with ``record_stream`` so their memory is not
+reused before the kernels that read them have finished.
 
 Across processes (a data mesh, ``parallel.mesh``): each rank streams its
 own source (``ShardedFileSource`` reads ``files[rank::world]``), carries
@@ -56,7 +55,7 @@ from typing import Iterator, Optional, Protocol
 import numpy as np
 import torch
 
-from ..core import SomSpec, _centers, chunk_data, make_stats_fn, make_update_fn
+from ..core import SomSpec, _centers, make_stats_fn, make_update_fn
 from ..utils.hw import resolve_device, training_chunk
 from ..utils.native import load_chunkloader
 from .mesh import (
@@ -320,56 +319,40 @@ def device_superbatches(source: DataSource, rows: int, chunk: int, device, mesh=
     mask, n)``: ``core.chunk_data``'s (C, chunk, D) chunks, zero-padded to
     whole chunks (with a mesh spanning processes, to the chunk count the
     ranks agree on, :func:`_synced_superbatches`), its (C, chunk) float32
-    mask and the row count. On the card through pinned buffers and a side
-    copy stream (module docstring); the tensors are ready for work
-    enqueued on the current stream."""
+    mask and the row count, made by :func:`_feed`. On the card the feed
+    runs on a side stream (module docstring); the tensors are ready for
+    work enqueued on the current stream."""
     rows = _check_rows(rows)
     device = torch.device(device)
     blocks = _synced_superbatches(source, rows, chunk, mesh)
-    if device.type != "cuda":
-        for block, min_chunks in blocks:
-            block = np.atleast_2d(np.asarray(block, np.float32))
-            chunks, mask, n = chunk_data(block, chunk, min_chunks=min_chunks)
-            yield torch.from_numpy(chunks).to(device), torch.from_numpy(mask).to(device), n
-        return
-    compute = torch.cuda.current_stream(device)
-    copy = torch.cuda.Stream(device)
-    buffers = [None, None]  # per slot: (pinned rows, event of the copy out of it)
-    for k, (block, min_chunks) in enumerate(blocks):
+    if device.type == "cuda":
+        compute, copy = torch.cuda.current_stream(device), torch.cuda.Stream(device)
+    for block, min_chunks in blocks:
         block = np.atleast_2d(np.asarray(block, np.float32))
-        n, d = block.shape
+        n = block.shape[0]
         c = max(min_chunks, -(-n // chunk))
-        total = c * chunk
-        slot = buffers[k % 2]
-        if slot is not None and slot[0].shape[0] >= total and slot[0].shape[1] == d:
-            pinned = slot[0]
-            slot[1].synchronize()  # the copy out of this buffer has finished
+        if device.type != "cuda":
+            chunks, mask = _feed(block, c, chunk, device)
         else:
-            pinned = torch.empty((max(total, -(-rows // chunk) * chunk), d),
-                                 dtype=torch.float32, pin_memory=True)
-        host = pinned.numpy()
-        host[:n] = block
-        host[n:total] = 0.0
-        with torch.cuda.stream(copy):
-            chunks = pinned[:total].to(device, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(copy)
-        # the caching allocator must not hand this memory to the next
-        # superbatch's copy before the compute stream's kernels have read it
-        chunks.record_stream(compute)
-        compute.wait_event(done)
-        buffers[k % 2] = (pinned, done)
-        mask = (torch.arange(total, device=device) < n).to(torch.float32)
-        yield chunks.view(c, chunk, d), mask.view(c, chunk), n
+            with torch.cuda.stream(copy):
+                chunks, mask = _feed(block, c, chunk, device)
+                done = torch.cuda.Event()
+                done.record(copy)
+            # the caching allocator must not hand this memory to the next
+            # superbatch's feed before the compute stream's kernels have read it
+            chunks.record_stream(compute)
+            mask.record_stream(compute)
+            compute.wait_event(done)
+        yield chunks, mask, n
 
 
-STAGE_BYTES = 64 << 20  # one pinned slot of the resident feed's ring
+STAGE_BYTES = 64 << 20  # one pinned slot of the feed's ring
 _RINGS = {}  # card index -> its _StagingRing
 _RINGS_LOCK = threading.Lock()
 
 
 class _StagingRing:
-    """The resident feed's staging on one card: two pinned host slots of
+    """The feed's staging on one card: two pinned host slots of
     ``STAGE_BYTES`` (wider where one row needs it) and the event of the
     last copy out of each slot. ``lock`` keeps one feed at a time on the
     ring."""
@@ -435,6 +418,18 @@ def upload_padded(rows: np.ndarray, total: int, device) -> torch.Tensor:
         out[:n].copy_(src)
     out[n:].zero_()
     return out
+
+
+def _feed(rows: np.ndarray, c: int, chunk: int, device):
+    """``core.chunk_data``'s ``(c, chunk, D)`` chunks and ``(c, chunk)``
+    float32 mask of the ``(n, D)`` host array ``rows`` (n <= c · chunk),
+    made on ``device``: the rows by :func:`upload_padded`, the mask built
+    on the device. Ready for work enqueued on the current stream."""
+    n = rows.shape[0]
+    chunks = upload_padded(rows, c * chunk, device)
+    mask = torch.ones(c * chunk, dtype=torch.float32, device=chunks.device)
+    mask[n:].zero_()
+    return chunks.view(c, chunk, chunks.shape[1]), mask.view(c, chunk)
 
 
 def _grid_superbatches(source: DataSource, rows: int, chunk: int, mesh: GridMesh):

@@ -1,4 +1,4 @@
-from .envflags import env_flag, env_tristate
+from .envflags import env_flag
 from .hw import (
     backend_kind,
     default_n_parallel,
@@ -12,7 +12,6 @@ from .progress import ProgressReporter
 
 __all__ = [
     "env_flag",
-    "env_tristate",
     "find_cpu_cores",
     "backend_kind",
     "round_up",

@@ -215,7 +215,8 @@ def epoch_anatomy(som, data, *, lo=2, hi=8, reps=3):
     per-window constant (launch latency, the first launch's wait). A
     window on a card model is timed by CUDA events, on a CPU model by the
     host clock. The data, chunked by ``som._n_parallel``, is uploaded once
-    to the model's device.
+    to the model's device by the port's feed (``parallel.pipeline._feed``),
+    before any window.
 
     Single-device measurement (``som`` may carry a mesh for training;
     anatomy runs the unsharded step on this process's device, with the
@@ -226,14 +227,14 @@ def epoch_anatomy(som, data, *, lo=2, hi=8, reps=3):
 
     from .. import core
     from ..ops import kernels
+    from ..parallel.pipeline import _feed
 
     spec = som._spec
     dist = spec.distance_fn()
     device = som._device
     data2d = np.ascontiguousarray(np.atleast_2d(data), dtype=np.float32)
-    chunks, mask, _ = core.chunk_data(data2d, som._n_parallel)
-    chunks = torch.from_numpy(chunks).to(device)
-    mask = torch.from_numpy(mask).to(device)
+    chunk = som._n_parallel
+    chunks, mask = _feed(data2d, max(1, -(-data2d.shape[0] // chunk)), chunk, device)
     w = torch.from_numpy(np.asarray(som._weights, dtype=np.float32)).to(device)
     stats = core.make_stats_fn(spec)
     step = core.make_epoch_step(spec, 8)  # a static schedule for the decays
