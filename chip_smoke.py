@@ -32,13 +32,14 @@ Phases (each prints lines; any failure raises and exits non-zero):
      beside one bf16 cuBLAS product with an f32 output + ``argmin`` (K2:
      + ``topk(2)``) and with each block's A streamed instead of resident,
      then K1's and K2's three feeds (``phase_feeds``: A streamed, pairs
-     of row blocks sharing each codebook chunk, A in registers; ptxas's
-     report of each instance; bit for bit each other on 1, 2, 3 and 129
-     row blocks at 129 and 16384 nodes, D = 5, 30, 50, 64 and 500, and on
-     the tie fixtures; ``paired`` and ``registers`` counting exactly the
-     launches ``search_feed`` routes there; K10 bitwise K1 + K9; K1, K2
-     and K1's feed alone timed on each feed at the flagship chunk and at
-     websom-fit's, with the bytes they move from L2),
+     of row blocks sharing each codebook chunk, A in registers, the first
+     two on 256-row codebook tiles; ptxas's report of each instance; bit
+     for bit each other on 1, 2, 3 and 129 row blocks at 129, 300 and
+     16384 nodes, D = 5, 30, 50, 64, 85 and 500, and on the tie fixtures;
+     ``paired``, ``registers`` and ``wide`` counting exactly the launches
+     ``search_feed`` routes there; K10 bitwise K1 + K9; K1, K2 and K1's
+     feed alone timed on each feed at the flagship chunk, at websom-fit's
+     and at packed D = 512, with the bytes they move from L2),
      then K9 (statistics scatter) bitwise against its
      plain version and a second launch on the three flagship chunks
      (uniform nodes, K1's nodes, the initial codebook's) and on fixtures
@@ -309,18 +310,19 @@ SEARCHES = ("K1 ARGMIN", "K3 SPLIT3", "K2 TOP2", "K1-kb KBLOCKED", "FEED")
 
 def _kernel_name(mangled):
     """The last component of a mangled kernel name (plus the gemm_sm90
-    variant and its feed: ``pair``, or ``A in registers xN`` for N chunks;
-    or the tile_argmin.cuh term and epilogue):
-    ``_ZN<len><name><len><name>...``."""
+    variant and its feed: ``pair``, or ``A in registers xN`` for N chunks,
+    and ``wide`` on 256-row codebook tiles; or the tile_argmin.cuh term and
+    epilogue): ``_ZN<len><name><len><name>...``."""
     rest, name = mangled[3:] if mangled.startswith("_ZN") else "", mangled
     while rest[:1].isdigit():
         n = int(re.match(r"\d+", rest).group())
         rest = rest[len(str(n)):]
         name, rest = rest[:n], rest[n:]
-    v = re.search(r"SearchE(\d)E(?:Li(\d+)ELi(\d+)E)?", mangled)
+    v = re.search(r"SearchE(\d)E(?:Li(\d+)ELi(\d+)E(?:Li\d+ELb([01])E)?)?", mangled)
     if v:
         cluster, ra = int(v.group(2) or 1), int(v.group(3) or 0)
-        tail = (" pair" if cluster > 1 else "") + (f" A in registers x{ra}" if ra else "")
+        tail = (" pair" if cluster > 1 else "") + (f" A in registers x{ra}" if ra else "") + (
+            " wide" if v.group(4) == "1" else "")
         return f"{name} <{SEARCHES[int(v.group(1))]}>{tail}"
     t = re.search(r"(L1Term|PowTerm|FracTerm)(?:I((?:L[bi]n?\d+E)+)E)?ELb([01])E", mangled)
     if t:
@@ -865,13 +867,18 @@ FEED_NAMES = {0: "A streamed, one block a row block", 1: "pairs of row blocks sh
               "codebook chunk", 2: "A in registers, one block a row block"}
 # (samples, nodes, D) whose rows make 1, 2, 3 and 129 row blocks, at 129 and
 # 16384 nodes (D = 64, K = 208: A in registers four chunks deep) and at a
-# reduced WEBSOM width (D = 500, K = 1504: A streamed or pairs); then A in
-# registers one, two and three chunks deep (D = 5, 30, 50: K = 32, 96, 160)
+# reduced WEBSOM width (D = 500, K = 1504: A streamed or pairs, on 256-row
+# tiles); then A in registers one, two and three chunks deep (D = 5, 30,
+# 50: K = 32, 96, 160); then three laid-out tiles (the last 256-row tile
+# has one) at K = 1504 and at K = 272 (a last depth chunk of 16)
 FEED_SHAPES = tuple((n, xy, d) for d, xys in ((64, (129, 16384)), (500, (3000,)))
                     for xy in xys for n in (64, 129, 384, 16384 + 64)) + (
-    (384, 3000, 5), (384, 3000, 30), (16384 + 64, 16384, 50))
+    (384, 3000, 5), (384, 3000, 30), (16384 + 64, 16384, 50), (384, 300, 500), (129, 300, 85))
 # websom-fit's chunk: 16384 rows of 500 attributes against 1044 x 960 units
 WEBSOM_CHUNK = (16384, 1044 * 960, 500)
+# the flagship chunk at packed D = 512 (K = 1552, A streamed), where K1 lost
+# to one cuBLAS product + argmin
+D512_CHUNK = (16384, 16384, 512)
 
 
 def _feeds(kb, k):
@@ -901,16 +908,17 @@ def _feed(torch, a_laid, w_laid, n, k, xy, cluster):
 def _feed_bytes(n, xy, k, feed):
     """``(to the SMs, from L2)``: the bytes a feed of K1 moves for one
     search of n rows against xy units at depth k. A streamed: every row
-    block's A chunks with every codebook chunk of every tile; pairs (feed
-    1): the same into each block, but each codebook chunk read once a
-    pair, and a pair's block past the rows reads no A; A in registers
-    (feed 2): each row block's A once, then the codebook chunks."""
+    block's A chunks once for every 256-row codebook tile, beside every
+    codebook chunk; pairs (feed 1): the same into each block, but each
+    codebook chunk read once a pair, and a pair's block past the rows
+    reads no A; A in registers (feed 2): each row block's A once, then the
+    codebook chunks."""
     k16 = -(-k // 16) * 16
-    rb, tiles = -(-n // 128), -(-xy // 128)
+    rb, laid = -(-n // 128), -(-xy // 128)
     pair = 2 if feed == 1 else 1
     blocks = -(-rb // pair) * pair
-    a = rb * 128 * k16 * 2 * (1 if feed == 2 else tiles)
-    b = tiles * 128 * k16 * 2
+    a = rb * 128 * k16 * 2 * (1 if feed == 2 else -(-laid // 2))
+    b = laid * 128 * k16 * 2
     return a + blocks * b, a + blocks // pair * b
 
 
@@ -951,23 +959,29 @@ def _feed_bits(torch, kb, name, x, w):
 
 def phase_feeds(torch, card, ptxas):
     """K1's and K2's feeds (``xps_gemm_argmin``'s and ``xps_gemm_top2``'s
-    ``feed``): ptxas's registers and spills of each instance; every feed
-    bit for bit A streamed's at every shape of FEED_SHAPES and on the tie
-    fixtures, and against the plain versions; ``paired`` and ``registers``
-    counting exactly the launches that ``search_feed`` sends there; K10
-    (A streamed) bitwise K1 (A in registers) + K9 on the flagship chunk;
-    then K1, K2 and K1's feed alone (``xps_gemm_feed``: the ring's copies,
-    no product) timed on each feed at the flagship chunk, whose operands
-    stay in L2, and at websom-fit's chunk, beside the bytes they move to
-    the SMs and read from L2."""
+    ``feed``): ptxas's registers and spills of each instance, the deep
+    feeds' on 256-row tiles; every feed bit for bit A streamed's at every
+    shape of FEED_SHAPES and on the tie fixtures, and against the plain
+    versions; ``paired``, ``registers`` and ``wide`` counting exactly the
+    launches that ``search_feed`` sends there; K10 (A streamed) bitwise K1
+    (A in registers) + K9 on the flagship chunk; then K1, K2 and K1's feed
+    alone (``xps_gemm_feed``: the ring's copies, no product) timed on each
+    feed at the flagship chunk, whose operands stay in L2, at websom-fit's
+    chunk and at the flagship chunk at packed D = 512, beside the bytes
+    they move to the SMs and read from L2."""
     from xpysom_dask_tpu_torch.ops import kernels
     from xpysom_dask_tpu_torch.ops.kernels import bmu as kb
     from xpysom_dask_tpu_torch.ops.kernels import fused_stats as kf
     from xpysom_dask_tpu_torch.ops.kernels import stats as ks
 
-    for search in ("K1 ARGMIN", "K2 TOP2"):
+    for search, count in (("K1 ARGMIN", 6), ("K2 TOP2", 6), ("FEED", 2)):
         fed = {k: v for k, v in ptxas.items() if k.startswith(f"gemm_sm90_kernel <{search}>")}
-        require(len(fed) == 6, f"ptxas: {search}: {sorted(fed)} (6 instances expected)")
+        require(len(fed) == count, f"ptxas: {search}: {sorted(fed)} ({count} instances "
+                "expected)")
+        # the deep feeds (A streamed, pairs) on 256-row tiles, A in registers on 128
+        wide = sorted(k for k in fed if k.endswith(" wide"))
+        require(len(wide) == 2 and not any("registers" in k for k in wide),
+                f"ptxas: {search}: the 256-row instances {wide}")
         for label, regs in sorted(fed.items()):
             require(regs[1] == regs[2] == 0, f"{label} spills: {regs}")
             print(f"feeds: ptxas {label}: {regs[0]} registers, no spills (sm_90a)")
@@ -988,6 +1002,7 @@ def phase_feeds(torch, card, ptxas):
     for name, per in (("bmu_argmin", 5), ("bmu_top2", 4)):
         want[f"{name}.paired"] = per * routed.count(kb.FEED_PAIRS)
         want[f"{name}.registers"] = per * routed.count(kb.FEED_REGISTERS)
+        want[f"{name}.wide"] = per * (len(routed) - routed.count(kb.FEED_REGISTERS))
     got = {k: counts[k] for k in want}
     require(got == want, f"feeds: launches {got}, expected {want}")
     print(f"feeds: K1 and K2 bitwise equal on every feed on {len(FEED_SHAPES)} shapes "
@@ -1027,7 +1042,8 @@ def phase_feeds(torch, card, ptxas):
 
     for label, (n, xy, d), reps, warmup in (
             ("the flagship chunk", (f["chunk"], f["x"] * f["y"], f["d"]), 20, 3),
-            ("websom-fit's chunk", WEBSOM_CHUNK, 3, 1)):
+            ("websom-fit's chunk", WEBSOM_CHUNK, 3, 1),
+            ("the flagship chunk at packed D = 512", D512_CHUNK, 10, 2)):
         g = torch.Generator(device="cuda").manual_seed(n + xy + d)
         x = torch.rand(n, d, device="cuda", generator=g)
         cb = kb.PackedCodebook(torch.rand(xy, d, device="cuda", generator=g) * 2 - 1)
@@ -1047,8 +1063,8 @@ def phase_feeds(torch, card, ptxas):
                         f"feeds, {label}: {entry} with {FEED_NAMES[other]} differs in bits")
             moved = {key: after[key] - before[key] for key in after
                      if key.startswith(name + ".") and after[key] != before[key]}
-            want = {} if feed == kb.FEED_STREAMED else {
-                f"{name}.{'paired' if feed == kb.FEED_PAIRS else 'registers'}": 1}
+            want = {f"{name}.registers": 1} if feed == kb.FEED_REGISTERS else {
+                f"{name}.wide": 1, **({f"{name}.paired": 1} if feed == kb.FEED_PAIRS else {})}
             require(moved == want, f"feeds, {label}: {name} counted {moved}, expected {want}")
         print(f"feeds, {label}: the routed K1 and K2 took {FEED_NAMES[feed]}, bitwise every "
               "other feed's")
@@ -3840,9 +3856,10 @@ def phase_grid_ranks(torch, card, workdir, world, backend):
 # epoch_anatomy's depths on the card (the JAX package's defaults): each
 # stage runs (lo + hi) times as a warm-up, then reps windows at each depth
 ANATOMY = dict(lo=2, hi=8, reps=3)
-# PERF.md's predictions (ms), written before the first run of the phase
+# PERF.md's predictions (ms), written before the first run of the phase; the
+# euclidean BMU stage's around the 7.38 ms that K1 with A in registers read
 ANATOMY_PREDICTED = {
-    "euclidean": {"bmu_ms": (8.5, 10.5), "stats_ms": (11.0, 13.0), "epoch_ms": (11.0, 13.5)},
+    "euclidean": {"bmu_ms": (6.9, 7.9), "stats_ms": (11.0, 13.0), "epoch_ms": (11.0, 13.5)},
     "manhattan": {"bmu_ms": (44.0, 47.0), "epoch_ms": (48.0, 51.0)},
 }
 

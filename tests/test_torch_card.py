@@ -36,7 +36,13 @@ import), and ``epoch_anatomy`` launches each stage's kernels exactly.
 K1 and K2 give the same bits on each of their feeds (A streamed, pairs of
 row blocks sharing each codebook chunk, A in registers) on 1, 2, 3 and
 129 row blocks, and the routed launches count the feed ``search_feed``
-picks.
+picks. On the two deep feeds a tile is 256 codebook rows (two laid-out
+128-row tiles a stage): past the register depth they agree with each
+other and with K10's 128-wide search bit for bit, on an odd count of
+laid-out tiles, last depth chunks of 32 and 16 and a pair of one row
+block; planted ties on either side of a tile's 128-row seam and across
+256-row tiles go to the first index; and ``.wide`` counts exactly the
+launches past the register depth.
 
 The resident and the streamed feed on the card: the pinned ring is made
 once and reused by the next call, and the chunks and mask each feed makes
@@ -139,6 +145,76 @@ def test_k1_and_k2_feeds_equal_bitwise(card, n, xy, d):
         assert after[name] - before[name] == 1
         assert after[f"{name}.registers"] - before[f"{name}.registers"] == int(d < 500)
         assert after[f"{name}.paired"] == before[f"{name}.paired"]
+        assert after[f"{name}.wide"] - before[f"{name}.wide"] == int(d == 500)
+
+
+# (samples, nodes, D) past the register depth, on the 256-wide tiles: 3
+# laid-out tiles (the last wide tile has one) at K = 1504 (a last depth
+# chunk of 32) on 1, 2 and 3 row blocks, and at K = 272 (a last chunk of
+# 16); 7,831 laid-out tiles, a codebook beyond L2, on 2 row blocks (pairs);
+# packed D = 512 (K = 1552) on 129 row blocks
+WIDE_FIXTURES = [(64, 300, 500), (129, 300, 500), (384, 300, 500), (384, 300, 85),
+                 (256, 7830 * 128 + 128, 500), (16384 + 64, 16384, 512)]
+
+
+@pytest.mark.parametrize("n,xy,d", WIDE_FIXTURES)
+def test_wide_tiles_equal_on_both_deep_feeds_and_k10s_search(card, n, xy, d):
+    """K1 and K2 on 256-wide tiles, A streamed and as pairs (over one row
+    block the pair's second block past the rows), give the same bits; K1's
+    winners are those of K10's search (A streamed on 128-wide tiles); the
+    routed searches take ``search_feed``'s feed and count ``.wide``."""
+    rng = np.random.RandomState(n + xy + d)
+    x = torch.from_numpy(rng.rand(n, d).astype(np.float32)).to(card)
+    w = torch.from_numpy((rng.rand(xy, d) * 2 - 1).astype(np.float32)).to(card)
+    cb = kb.PackedCodebook(w, "packed", center=False)
+    k, w_laid = 3 * d + 3, cb.laid()[0]
+    assert -(-k // 16) * 16 > kb.REGISTER_K
+    a_laid = kb.lay_out_samples(x, cb.center, "packed")
+    for entry, outs in (("xps_gemm_argmin", 2), ("xps_gemm_top2", 4)):
+        got = [kb._gemm_sm90(entry, (a_laid, w_laid), n, k, xy, f, outs=outs)
+               for f in (kb.FEED_STREAMED, kb.FEED_PAIRS)]
+        assert all(map(torch.equal, _bits(got[1]), _bits(got[0]))), entry
+    before = kernels.launch_counts()
+    idx, val = cb.argmin(x)
+    top2 = cb.top2(x)
+    after = kernels.launch_counts()
+    assert all(map(torch.equal, _bits((idx, val)), _bits(top2[:2])))
+    assert all(map(torch.equal, _bits(top2), _bits(got[0])))
+    feed = kb.search_feed(n, k, xy)
+    for name in kernels.FED:
+        moved = {key: after[key] - before[key] for key in after
+                 if key.startswith(name + ".") and after[key] != before[key]}
+        assert moved == {f"{name}.wide": 1, **({f"{name}.paired": 1}
+                                               if feed == kb.FEED_PAIRS else {})}
+    i_f, _ = kf.bmu_stats_fused(x, cb, torch.ones(n, device=card))
+    assert torch.equal(i_f, idx), "K10's winners (128-wide tiles) are K1's"
+
+
+@pytest.mark.parametrize("d", [50, 100])
+@pytest.mark.parametrize("n", [4, 260, 16384 + 4])
+def test_ties_at_the_wide_tiles_seams_go_to_the_first_index(card, n, d):
+    """Exact ties (identical codebook rows) on either side of the 128-row
+    seam inside a 256-wide tile (127, 128), across two wide tiles (255,
+    256) and two tiles apart (300, 600): on every feed the depth takes
+    (D = 50: K = 160, A in registers on 128-wide tiles too; D = 100:
+    K = 304) K1 takes the first and K2 the second as its runner-up, and
+    the zero rows take units 0 and 1."""
+    w = np.zeros((700, d), np.float32)
+    for i, v in ((127, 5), (128, 5), (255, 3), (256, 3), (300, 7), (600, 7)):
+        w[i] = v
+    x = np.tile(np.array([0, 5, 3, 7], np.float32)[:, None] * np.ones(d, np.float32),
+                (n // 4, 1))
+    cb = kb.PackedCodebook(torch.from_numpy(w).to(card))
+    k = 3 * d + 3
+    a_laid = kb.lay_out_samples(torch.from_numpy(x).to(card), cb.center, "packed")
+    feeds = [kb.FEED_STREAMED, kb.FEED_PAIRS] + [kb.FEED_REGISTERS] * (k <= kb.REGISTER_K)
+    first, second = [0, 127, 255, 300] * (n // 4), [1, 128, 256, 600] * (n // 4)
+    for feed in feeds:
+        i1, _ = kb._gemm_sm90("xps_gemm_argmin", (a_laid, cb.laid()[0]), n, k, 700, feed)
+        j1, _, j2, _ = kb._gemm_sm90("xps_gemm_top2", (a_laid, cb.laid()[0]), n, k, 700, feed,
+                                     outs=4)
+        assert i1.tolist() == first and j1.tolist() == first, feed
+        assert j2.tolist() == second, feed
 
 
 KW = dict(sigma=64, sigmaN=1, learning_rate=0.5, learning_rateN=0.01, random_seed=0)

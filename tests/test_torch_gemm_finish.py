@@ -8,7 +8,10 @@ thread's own columns (0 and 8), in another quad lane (0 and 2) and
 across tiles (0 and 128, 127 and 128), a runner-up that ties the
 winner's value at a lower index than a third, and xy = 129, whose last
 tile has one column. It must equal ``bmu_top2_plain`` in all four
-outputs, and its first place the K1 finish's."""
+outputs, and its first place the K1 finish's. The same finish over
+256-column tiles (K1 and K2 on the deep feeds) gives the 128-column
+finish's outputs bit for bit, with ties across the 128-column seam of a
+wide tile and across wide tiles, and an odd count of 128-column tiles."""
 
 import numpy as np
 import pytest
@@ -36,13 +39,13 @@ def _merge_top2(mine, other):
     return mine
 
 
-def _thread_walk(drow, col0, q, xy, top2):
-    """One thread's walk over its columns col0 + j·8 + 2q + e of one row, in
-    increasing order, with a strict '<' (f32 compares); (inf, INT_MAX)
-    where no column is below +inf."""
+def _thread_walk(drow, col0, q, xy, top2, bn=kb.K1_BN):
+    """One thread's walk over its columns col0 + j·8 + 2q + e of one row
+    (a tile of ``bn`` columns), in increasing order, with a strict '<' (f32
+    compares); (inf, INT_MAX) where no column is below +inf."""
     inf = np.float32(np.inf)
     places = [[inf, -1], [inf, -1]]
-    for j in range(kb.K1_BN // 8):
+    for j in range(bn // 8):
         for e in range(2):
             col = col0 + j * 8 + 2 * q + e
             if col >= xy:
@@ -55,14 +58,14 @@ def _thread_walk(drow, col0, q, xy, top2):
     return [(v, INT_MAX if c < 0 else c) for v, c in places]
 
 
-def _emulated_finish(d, xy, top2):
+def _emulated_finish(d, xy, top2, bn=kb.K1_BN):
     """The finish of K2 (``top2``) or K1 over the f32 distances ``d`` (N,
     XY): per 128-row block, warpgroup, warp and accumulator row g, the
     thread of quad lane q holds rows g and g + 8 of its warp's 16 and, in
-    every 128-column tile, the columns j·8 + 2q + e. Returns (idx, val,
+    every ``bn``-column tile, the columns j·8 + 2q + e. Returns (idx, val,
     idx2, val2) as the kernel writes them (K1: idx2, val2 unused)."""
     n = d.shape[0]
-    bm, bn = kb.GEMM_BM, kb.K1_BN
+    bm = kb.GEMM_BM
     out = [np.full(n, -7, np.int32), np.full(n, np.nan, np.float32),
            np.full(n, -7, np.int32), np.full(n, np.nan, np.float32)]
     seen = np.zeros(n, int)
@@ -78,7 +81,8 @@ def _emulated_finish(d, xy, top2):
                         seen[row] += 1
                         best = [(inf, INT_MAX if top2 else 0), (inf, INT_MAX)]
                         for col0 in range(0, xy, bn):
-                            lanes = [_thread_walk(d[row], col0, q, xy, top2) for q in range(4)]
+                            lanes = [_thread_walk(d[row], col0, q, xy, top2, bn)
+                                     for q in range(4)]
                             for o in (1, 2):
                                 if top2:
                                     lanes = [_merge_top2(lanes[q], lanes[q ^ o]) for q in range(4)]
@@ -97,11 +101,11 @@ def _emulated_finish(d, xy, top2):
     return out
 
 
-def _fixture(xy, n, seed):
+def _fixture(xy, n, seed, extra=()):
     """Integer-valued f32 distances (N, XY), each row one of a set of
-    scenarios, and one-hot bf16 operands ``(a, w_aug)`` whose product is
-    exactly that matrix (one product per sum, every value exact in
-    bf16)."""
+    scenarios (``extra``: more, as ``{"c<column>": value}``), and one-hot
+    bf16 operands ``(a, w_aug)`` whose product is exactly that matrix (one
+    product per sum, every value exact in bf16)."""
     rng = np.random.RandomState(seed)
     base = (40 + (np.arange(xy) * 7) % 50).astype(np.float32)  # repeats every 50 columns
     rows = []
@@ -120,6 +124,8 @@ def _fixture(xy, n, seed):
     scenario(c50=1, c100=2, c20=2)  # a duplicated runner-up value, the lower index first
     scenario(c0=1, c1=1)  # both columns of one lane's pair
     scenario(c1=1, c3=2, c6=2)  # a runner-up tie across quad lanes
+    for at in extra:
+        scenario(**at)
     rows.append(np.where(np.arange(xy) == xy - 1, 0, base).astype(np.float32))  # the last column wins
     rows.append(np.where(np.arange(xy) == xy - 1, 1, np.where(np.arange(xy) == 10, 0, base))
                 .astype(np.float32))  # the last column is the runner-up
@@ -170,3 +176,26 @@ def test_emulated_top2_finish_is_the_stable_argsort(xy):
     np.testing.assert_array_equal(got[2], order[:, 1])
     np.testing.assert_array_equal(got[1], d[np.arange(150), order[:, 0]])
     np.testing.assert_array_equal(got[3], d[np.arange(150), order[:, 1]])
+
+
+@pytest.mark.parametrize("n", [203, 300])
+@pytest.mark.parametrize("xy", [129, 259, 300, 513])
+def test_emulated_wide_finish_equals_the_128_column_finish(xy, n):
+    """K1's and K2's finish over 256-column tiles (two laid-out tiles a
+    stage on the deep feeds) gives the 128-column finish's four outputs
+    bit for bit, and the plain version's: ties on either side of the
+    128-column seam inside a wide tile (127, 128), across wide tiles (255,
+    256; 0, 256; 300, 600) and, at xy = 300 and 513, a last wide tile
+    with one laid-out tile."""
+    seams = [dict(c255=1, c256=1), dict(c0=1, c256=1), dict(c300=1, c600=1),
+             dict(c127=2, c128=1, c256=1), dict(c200=3, c384=3, c512=3)]
+    d, a, w_aug = _fixture(xy, n, 3 * xy + n, extra=seams)
+    assert np.array_equal(kb._distances_plain(a, w_aug, xy).numpy(), d)
+    want = [t.numpy() for t in kb.bmu_top2_plain(a, w_aug, xy)]
+    for top2 in (True, False):
+        wide = _emulated_finish(d, xy, top2, bn=kb.K1_WIDE_BN)
+        narrow = _emulated_finish(d, xy, top2)
+        for w, t in zip(wide, narrow):
+            np.testing.assert_array_equal(w.view(np.int32), t.view(np.int32))
+        for w, p in zip(wide if top2 else wide[:2], want):
+            np.testing.assert_array_equal(w, p)

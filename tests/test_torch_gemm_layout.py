@@ -238,11 +238,14 @@ def test_layout_constants_match_the_kernel_source():
     feeds = dict(re.findall(r"(FEED_\w+) = (\d+)", src))
     assert feeds == {"FEED_STREAMED": str(kb.FEED_STREAMED), "FEED_PAIRS": str(kb.FEED_PAIRS),
                      "FEED_REGISTERS": str(kb.FEED_REGISTERS)}
-    # every variant's tile width: K2, K1-kb and K1's feed alone read K1's
-    # codebook layout
+    # every variant's tile width: K2 and K1-kb read K1's codebook layout
     widths = dict(re.findall(r"struct Cfg<Search::(\w+)> : Shape<(\d+),", src))
     assert widths == {"ARGMIN": str(kb.K1_BN), "SPLIT3": str(kb.K3_BN),
-                      "TOP2": str(kb.K1_BN), "KBLOCKED": str(kb.K1_BN), "FEED": str(kb.K1_BN)}
+                      "TOP2": str(kb.K1_BN), "KBLOCKED": str(kb.K1_BN)}
+    # K1 and K2 on the deep feeds, and K1's feed alone: tiles of WIDE_BN
+    # rows made of K1's laid-out tiles
+    assert const("WIDE_BN") == kb.K1_WIDE_BN == kb.search_tile(kb.FEED_STREAMED)
+    assert re.search(r"struct Wide : Shape<WIDE_BN, 1, 1, Cfg<Search::ARGMIN>::BN>", src)
     # K1-kb's slabs end on chunk ends
     assert 128 % kb.GEMM_BK == 0
 

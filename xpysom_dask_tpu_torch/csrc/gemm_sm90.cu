@@ -92,10 +92,11 @@
 //       codebook larger than the 50 MB L2): clusters of PAIR = 2 blocks
 //       along the row blocks (cudaLaunchKernelEx with a cluster dimension)
 //       that walk the same codebook chunks in the same order. Each block's
-//       producer copies its own A chunk and half of each codebook chunk
-//       with one multicast bulk copy into the same stage offset of both
-//       blocks, so each block's full[s] expects its A bytes and the whole
-//       codebook chunk, and a stage is refilled only once the consumer
+//       producer copies its own A chunk and one of the stage's two laid-out
+//       codebook chunks (below: rank r the tile's r-th) with one multicast
+//       bulk copy into the same stage offset of both blocks, so each
+//       block's full[s] expects its A bytes and the whole stage's codebook
+//       chunks, and a stage is refilled only once the consumer
 //       warps of both blocks released it (empty[s] counts 16 arrivals;
 //       lane r of each warp arrives on block r's barrier through mapa, with
 //       mbarrier.arrive's default CTA-scope release: at cluster scope each
@@ -106,21 +107,38 @@
 //       pair's second block has no rows (the laid-out A ends at the last
 //       row block): it feeds its half and releases its stages, loading no
 //       A and writing nothing. A pair reads each codebook chunk from L2
-//       once; each SM still receives 32 KB a stage;
+//       once; each SM still receives every byte of it (48 KB a stage);
 //     - A streamed beside each codebook chunk, one block a row block: the
 //       rest (a deep codebook that fits L2).
+//     On the two deep feeds (A streamed, pairs) a tile is WIDE_BN = 256
+//     codebook rows: a stage carries depth chunk c of laid-out tiles 2t and
+//     2t + 1 back to back (48 KB with A's 16 KB; four stages), and since
+//     the layout's 8-row groups follow one another at SBO = 16 dc bytes the
+//     two chunks side by side are the canonical operand of 256 rows, with
+//     no other layout or copy of the codebook. A block then reads each A
+//     chunk once for every 256 units, half as often: at websom-fit's chunk
+//     A's reads fall from 386 to 193 GB a call, and each SM receives 24 KB
+//     for every 1.05 M MACs where it received 32. Where the laid-out tiles are odd
+//     in number the last tile's second chunk is not copied (nor counted
+//     on full[s]); its columns lie past xy, which the finish never reads.
+//     A in registers keeps 128-row tiles: 52 fragment registers at
+//     K = 208 and a 128-register set would not fit beside each other.
 //     Measured on one H100 (chip_smoke.py phase_feeds; PERF.md): at the flagship
 //     chunk K1 0.2746 ms streamed, 0.2196 with A in registers, 0.3103 as
-//     pairs (K2 0.3732, 0.3513, 0.4116); at websom-fit's chunk (K = 1504,
-//     a 3.0 GB codebook operand) K1 144.4 ms streamed, 136.6 as pairs (K2
-//     142.9, 138.8). K1's ring alone (variant FEED: the copies, no
+//     pairs (K2 0.3732, 0.3513, 0.4116) on 128-row tiles; at websom-fit's
+//     chunk (K = 1504, a 3.0 GB codebook operand) K1 144.4 ms streamed,
+//     136.6 as pairs (K2 142.9, 138.8) on 128-row tiles, and 89.8-104.6
+//     streamed, 87.3-88.1 as pairs (K2 87.5-97.3, 99.1-103.5) on
+//     256-row tiles. K1's ring alone (variant FEED: the copies, no
 //     products) delivers the flagship chunk's 1.745 GB at 9.7-10.0 TB/s,
 //     where K1 streamed reads it at 6.4 TB/s: L2 bandwidth does not cap
 //     K1 there. Rings of 5-7 stages were no faster at the flagship chunk
 //     and slower at websom-fit's. K10, K3 and K1-kb keep A streamed (K3
 //     resident), one block a row block;
 //   * K1, K2, K1-kb: per 16-deep step one wgmma m64n128k16 per warpgroup
-//     into 64 accumulator registers (K1-kb adds 64 for its running sum);
+//     into 64 accumulator registers (K1-kb adds 64 for its running sum;
+//     K1 and K2 on the deep feeds one m64n256k16 into 128, A read from
+//     shared memory once for all 256 columns);
 //     K3: three wgmma m64n64k16 (hh, hl, lh) into
 //     three sets of 32 (BN = 64 keeps them at 96 registers). A tile's
 //     first product runs with scale-d 0, so no other instruction zeroes
@@ -244,8 +262,9 @@ __global__ void pack_layout_kernel(const float* __restrict__ x, long long ldx,
 
 // One row block per block: the search of gemm_sm90.cuh. CLUSTER > 1:
 // clusters of CLUSTER blocks that share each codebook chunk; RA > 0: A in
-// registers, RA chunks deep; NS: the ring's stages.
-template <Search S, int CLUSTER, int RA = 0, int NS = STAGES>
+// registers, RA chunks deep; NS: the ring's stages; WIDE: tiles of WIDE_BN
+// codebook rows.
+template <Search S, int CLUSTER, int RA = 0, int NS = STAGES, bool WIDE = false>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_sm90_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ a_lo,
                  const __nv_bfloat16* __restrict__ w, const __nv_bfloat16* __restrict__ w_lo,
@@ -260,17 +279,17 @@ gemm_sm90_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __res
   } else {
     __syncthreads();
   }
-  search_rows<S, CLUSTER, RA>(bar, smem, blockIdx.x, a, a_lo, w, w_lo, w_sq, n, k16, xy,
-                              resident, slab, idx_out, val_out, idx2_out, val2_out);
+  search_rows<S, CLUSTER, RA, WIDE>(bar, smem, blockIdx.x, a, a_lo, w, w_lo, w_sq, n, k16, xy,
+                                    resident, slab, idx_out, val_out, idx2_out, val2_out);
   // the others' consumers may still arrive on this block's barriers
   if constexpr (CLUSTER > 1) cluster_sync();
 }
 
-template <Search S, int CLUSTER = 1, int RA = 0, int NS = STAGES>
+template <Search S, int CLUSTER = 1, int RA = 0, int NS = STAGES, bool WIDE = false>
 int launch(const void* a, const void* a_lo, const void* w, const void* w_lo, const void* w_sq,
            int n, int k16, int xy, int resident, int slab, void* idx, void* val, void* idx2,
            void* val2, void* stream) {
-  using C = Cfg<S>;
+  using C = CfgOf<S, WIDE>;
   // A in registers: the ring carries the codebook alone
   constexpr int smem_bytes = RA ? NS * C::OPS * C::B_CHUNK : C::smem_bytes(NS);
   static_assert(smem_bytes <= 227 * 1024, "shared memory of a search");
@@ -281,7 +300,7 @@ int launch(const void* a, const void* a_lo, const void* w, const void* w_lo, con
   static bool smem_set = false;
   if (!smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        gemm_sm90_kernel<S, CLUSTER, RA, NS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        gemm_sm90_kernel<S, CLUSTER, RA, NS, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = true;
@@ -300,7 +319,7 @@ int launch(const void* a, const void* a_lo, const void* w, const void* w_lo, con
   cfg.attrs = attr;
   cfg.numAttrs = CLUSTER > 1 ? 1 : 0;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, gemm_sm90_kernel<S, CLUSTER, RA, NS>, static_cast<const __nv_bfloat16*>(a),
+      &cfg, gemm_sm90_kernel<S, CLUSTER, RA, NS, WIDE>, static_cast<const __nv_bfloat16*>(a),
       static_cast<const __nv_bfloat16*>(a_lo), static_cast<const __nv_bfloat16*>(w),
       static_cast<const __nv_bfloat16*>(w_lo), static_cast<const float*>(w_sq), n, k16, xy,
       resident, slab, static_cast<int*>(idx), static_cast<float*>(val), static_cast<int*>(idx2),
@@ -309,18 +328,18 @@ int launch(const void* a, const void* a_lo, const void* w, const void* w_lo, con
   return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
-// K1 or K2 (S) on its feed (the Feed enum of gemm_sm90.cuh);
-// cudaErrorInvalidValue for another feed, or A in registers past
-// REGISTER_K
+// K1 or K2 (S) on its feed (the Feed enum of gemm_sm90.cuh), the deep
+// feeds on tiles of WIDE_BN codebook rows; cudaErrorInvalidValue for
+// another feed, or A in registers past REGISTER_K
 template <Search S>
 int launch_fed(int feed, const void* a, const void* w, int n, int k16, int xy, void* idx,
                void* val, void* idx2, void* val2, void* stream) {
   if (feed == FEED_STREAMED)
-    return launch<S>(a, nullptr, w, nullptr, nullptr, n, k16, xy, 0, 0, idx, val, idx2, val2,
-                     stream);
+    return launch<S, 1, 0, STAGES, true>(a, nullptr, w, nullptr, nullptr, n, k16, xy, 0, 0, idx,
+                                         val, idx2, val2, stream);
   if (feed == FEED_PAIRS)
-    return launch<S, PAIR>(a, nullptr, w, nullptr, nullptr, n, k16, xy, 0, 0, idx, val, idx2,
-                           val2, stream);
+    return launch<S, PAIR, 0, STAGES, true>(a, nullptr, w, nullptr, nullptr, n, k16, xy, 0, 0,
+                                            idx, val, idx2, val2, stream);
   if (feed != FEED_REGISTERS) return static_cast<int>(cudaErrorInvalidValue);
   switch ((k16 + BK - 1) / BK) {
     case 1:
@@ -403,18 +422,20 @@ int xps_gemm_top2(const void* a, const void* w, int n, int k16, int xy, int feed
 }
 
 // K1's feed alone (variant FEED): K1's grid, ring and copies on K1's
-// operands (A streamed), each stage released as it lands, no product and
-// no output; cluster: 1, or PAIR (pairs of row blocks sharing each
-// codebook chunk). What the ring's copies can deliver, timed beside K1.
-// Returns the launch's error.
+// operands on the deep feeds (A streamed, tiles of WIDE_BN codebook rows),
+// each stage released as it lands, no product and no output; cluster: 1,
+// or PAIR (pairs of row blocks sharing each codebook chunk). What the
+// ring's copies can deliver, timed beside K1. Returns the launch's error.
 int xps_gemm_feed(const void* a, const void* w, int n, int k16, int xy, int cluster,
                   void* stream) {
   if (cluster == 1)
-    return launch<Search::FEED>(a, nullptr, w, nullptr, nullptr, n, k16, xy, 0, 0, nullptr,
-                                nullptr, nullptr, nullptr, stream);
+    return launch<Search::FEED, 1, 0, STAGES, true>(a, nullptr, w, nullptr, nullptr, n, k16, xy,
+                                                    0, 0, nullptr, nullptr, nullptr, nullptr,
+                                                    stream);
   if (cluster == PAIR)
-    return launch<Search::FEED, PAIR>(a, nullptr, w, nullptr, nullptr, n, k16, xy, 0, 0, nullptr,
-                                      nullptr, nullptr, nullptr, stream);
+    return launch<Search::FEED, PAIR, 0, STAGES, true>(a, nullptr, w, nullptr, nullptr, n, k16,
+                                                       xy, 0, 0, nullptr, nullptr, nullptr,
+                                                       nullptr, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

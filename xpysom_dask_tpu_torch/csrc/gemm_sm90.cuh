@@ -14,10 +14,13 @@
 // and why): A streamed beside each codebook chunk; pairs, where a launch of
 // clusters of CLUSTER blocks runs search_rows<S, CLUSTER> in every block,
 // one row block each, the blocks walking the same codebook chunks in the
-// same order, each reading 1 / CLUSTER of every chunk from L2 and
-// multicasting it into the same stage of every block of the cluster; and
-// A in registers (search_rows<S, 1, RA>), the ring carrying the codebook
-// alone.
+// same order, each reading one laid-out tile's part of every stage from L2
+// and multicasting it into the same stage of every block of the cluster;
+// and A in registers (search_rows<S, 1, RA>), the ring carrying the
+// codebook alone. On the first two (the deep feeds, search_rows<S, CLUSTER,
+// 0, true>) a tile is WIDE_BN codebook rows, two laid-out tiles side by
+// side in each stage, so that a block reads its A chunks once for every
+// WIDE_BN rows of the codebook.
 
 #pragma once
 
@@ -27,6 +30,7 @@
 #include <stdint.h>
 
 #include <climits>
+#include <type_traits>
 
 #include "sm90.cuh"  // bulk copies, mbarriers, descriptors, fences
 
@@ -44,6 +48,7 @@ constexpr int LBO_BYTES = 128;    // between the core matrices adjacent along K
 constexpr int PAIR = 2;           // blocks of a cluster of K1 and K2 on the pairs' feed
 constexpr int REGISTER_K = 256;   // K1 and K2 hold A in registers up to this padded depth
 constexpr int REG_STAGES = 8;     // the ring's stages with A in registers (codebook chunks alone)
+constexpr int WIDE_BN = 256;      // K1's and K2's codebook tile on the deep feeds
 
 // K1's and K2's feeds (ops/kernels/bmu.py search_feed picks one from the
 // shape): A streamed beside each codebook chunk, one block a row block;
@@ -56,9 +61,11 @@ enum Feed { FEED_STREAMED = 0, FEED_PAIRS = 1, FEED_REGISTERS = 2 };
 // and release it), which measures what the copies can feed
 enum class Search { ARGMIN, SPLIT3, TOP2, KBLOCKED, FEED };
 
-template <int BN_, int OPS_, int NACC_>
+template <int BN_, int OPS_, int NACC_, int LAID_ = BN_>
 struct Shape {
   static constexpr int BN = BN_;      // codebook rows per tile
+  static constexpr int LAID = LAID_;  // codebook rows per laid-out tile
+  static constexpr int PARTS = BN / LAID;  // laid-out tiles per tile, side by side in a stage
   static constexpr int OPS = OPS_;    // operand halves (hi, lo)
   static constexpr int NACC = NACC_;  // wgmma accumulator sets
   static constexpr int REGS = BN / 2;  // f32 accumulators per set
@@ -88,10 +95,16 @@ template <>
 struct Cfg<Search::TOP2> : Shape<128, 1, 1> {};
 template <>
 struct Cfg<Search::KBLOCKED> : Shape<128, 1, 1> {};
-template <>
-struct Cfg<Search::FEED> : Shape<128, 1, 1> {};
+// K1 and K2 on the deep feeds, and K1's ring alone (FEED): a tile of
+// WIDE_BN codebook rows, two of K1's laid-out tiles whose chunks lie side
+// by side in a stage (128 accumulator registers, one wgmma m64n256k16 a
+// 16-deep step)
+struct Wide : Shape<WIDE_BN, 1, 1, Cfg<Search::ARGMIN>::BN> {};
+template <Search S, bool WIDE>
+using CfgOf = std::conditional_t<WIDE, Wide, Cfg<S>>;
 static_assert(Cfg<Search::SPLIT3>::SMEM_BYTES <= 227 * 1024, "shared memory of K3");
 static_assert(Cfg<Search::ARGMIN>::SMEM_BYTES <= 227 * 1024, "shared memory of K1");
+static_assert(Wide::SMEM_BYTES <= 227 * 1024, "shared memory of K1 and K2 on the deep feeds");
 
 // The ring's mbarriers (a ring of NS stages), in a block's static shared
 // memory
@@ -178,6 +191,50 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da, uint64_t
       : "l"(da), "l"(db), "r"(acc));
 }
 
+// the same with 256 codebook rows (128 f32 accumulators a thread), A read
+// once for all of them
+__device__ __forceinline__ void wgmma_bf16(float (&d)[128], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, "
+      "%126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 // d (64 x 128, f32) = A . B^T + (acc ? d : 0) with A from registers: the
 // thread's fragment of its warp's 16 rows x 16 of depth (rows g, g + 8;
 // depth 2q, 2q + 1 and 2q + 8, 2q + 9, the lower index in the low half)
@@ -241,30 +298,36 @@ __device__ __forceinline__ void release_stage(RingOf<NS>& bar, int it, int lane)
 
 // The search of row block rb (rows rb * BM .. +BM - 1) by the first
 // THREADS threads of a block over a fresh ring `bar` (initialised, then a
-// barrier) and `smem` (Cfg<S>::SMEM_BYTES of dynamic shared memory).
+// barrier) and `smem` (CfgOf<S, WIDE>::SMEM_BYTES of dynamic shared memory).
 // Every thread returns; the producer warp's lanes return once the copies
 // are issued, the consumers once the rows are written. No block barrier
 // inside. slab: K1-kb's chunks per slab (kblock / BK); unused by the
 // others. idx2_out, val2_out: K2's runner-up; unused by the others.
 // RA > 0: A in registers, RA chunks deep (nk == RA); the ring carries the
 // codebook chunks alone.
-// CLUSTER > 1: the block is one of a cluster launched with one row block
-// each (its ring from ring_init<CLUSTER>, behind a cluster barrier, and a
-// cluster barrier after the search, so that no block exits while another
-// can still arrive on its barriers); the producer of rank r copies part r
-// of each codebook chunk into every block's stage. A block whose row
-// block lies past the rows (the last of an odd count: the laid-out A ends
-// at the last row block) loads no A and writes nothing, but feeds the
-// others their parts and releases its stages.
-template <Search S, int CLUSTER = 1, int RA = 0, int NS>
+// WIDE: tiles of WIDE_BN codebook rows (CfgOf), each stage holding chunk c
+// of two consecutive laid-out tiles back to back (the second missing from
+// the last tile where the laid-out tiles are odd in number).
+// CLUSTER > 1 (WIDE, CLUSTER == Wide::PARTS): the block is one of a
+// cluster launched with one row block each (its ring from
+// ring_init<CLUSTER>, behind a cluster barrier, and a cluster barrier
+// after the search, so that no block exits while another can still arrive
+// on its barriers); the producer of rank r copies laid-out tile r of each
+// stage's tile into every block's stage. A block whose row block lies past
+// the rows (the last of an odd count: the laid-out A ends at the last row
+// block) loads no A and writes nothing, but feeds the others their parts
+// and releases its stages.
+template <Search S, int CLUSTER = 1, int RA = 0, bool WIDE = false, int NS>
 __device__ __forceinline__ void search_rows(
     RingOf<NS>& bar, unsigned char* smem, int rb, const __nv_bfloat16* __restrict__ a,
     const __nv_bfloat16* __restrict__ a_lo, const __nv_bfloat16* __restrict__ w,
     const __nv_bfloat16* __restrict__ w_lo, const float* __restrict__ w_sq, int n, int k16,
     int xy, int resident, int slab, int* __restrict__ idx_out, float* __restrict__ val_out,
     int* __restrict__ idx2_out, float* __restrict__ val2_out) {
-  using C = Cfg<S>;
+  using C = CfgOf<S, WIDE>;
   constexpr int BN = C::BN;
+  static_assert(CLUSTER == 1 || CLUSTER == C::PARTS, "a cluster's ranks copy a laid-out tile each");
+  static_assert(!(WIDE && RA), "A in registers keeps K1's laid-out tile");
   constexpr bool SPLIT3 = S == Search::SPLIT3;
   constexpr bool TOP2 = S == Search::TOP2;
   constexpr bool KB = S == Search::KBLOCKED;
@@ -281,6 +344,7 @@ __device__ __forceinline__ void search_rows(
   const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
   const int nk = (k16 + BK - 1) / BK;
   const int ntiles = (xy + BN - 1) / BN;
+  const int laid = (xy + C::LAID - 1) / C::LAID;  // the codebook's laid-out tiles
   const int total = nk * ntiles;
   // resident: A tile (OPS halves of BM x k16), then the ring of W chunks
   const int a_bytes = BM * k16 * 2;  // one half's A tile
@@ -292,8 +356,8 @@ __device__ __forceinline__ void search_rows(
     const __nv_bfloat16* ga[2] = {a, a_lo};
     const __nv_bfloat16* gw[2] = {w, w_lo};
     const size_t a_tile = (size_t)rb * BM * k16;  // this row block's A tile
-    // the part of each codebook chunk this block reads (of CLUSTER)
-    const uint32_t rank = CLUSTER > 1 ? cluster_rank() : 0;
+    // the laid-out tile of each stage's tile this block reads (of CLUSTER)
+    const int rank = CLUSTER > 1 ? static_cast<int>(cluster_rank()) : 0;
     if (resident && rows && !REGA) {
       mbar_expect_tx(&bar.a_full, C::OPS * a_bytes);
 #pragma unroll
@@ -304,20 +368,32 @@ __device__ __forceinline__ void search_rows(
       if (it >= NS) mbar_wait(&empty[s], ((it / NS) - 1) & 1);
       const int tile = it / nk, c = it - (it / nk) * nk;
       const int dc = min(BK, k16 - c * BK);
-      const int b_bytes = BN * dc * 2, ac_bytes = BM * dc * 2;
+      // the tile's laid-out tiles (the last tile may lack its second) and
+      // the bytes of one's chunk
+      const int parts = C::PARTS == 1 ? 1 : min(C::PARTS, laid - tile * C::PARTS);
+      const int part_bytes = C::LAID * dc * 2, ac_bytes = BM * dc * 2;
       unsigned char* st = ring + s * stage_bytes;
-      // the whole B chunk lands in every block, A only where there are rows
-      mbar_expect_tx(&full[s], C::OPS * (b_bytes + (resident || REGA || !rows ? 0 : ac_bytes)));
+      // the tile's whole B chunk lands in every block, A only where there
+      // are rows
+      mbar_expect_tx(&full[s],
+                     C::OPS * (parts * part_bytes + (resident || REGA || !rows ? 0 : ac_bytes)));
 #pragma unroll
       for (int h = 0; h < C::OPS; ++h) {
-        const __nv_bfloat16* chunk = gw[h] + (size_t)tile * BN * k16 + (size_t)BN * c * BK;
-        if constexpr (CLUSTER > 1) {
-          // BN * dc / CLUSTER values: a multiple of 8 (16 bytes), dc being one of 16
-          const int part = BN * dc / CLUSTER;
-          bulk_copy_multicast(st + h * C::B_CHUNK + rank * part * 2, chunk + rank * part, part * 2,
-                              &full[s], static_cast<uint16_t>((1u << CLUSTER) - 1));
-        } else {
-          bulk_copy(st + h * C::B_CHUNK, chunk, b_bytes, &full[s]);
+        // part p's chunk lands at p * part_bytes: its 8-row groups follow
+        // part p - 1's at their stride (16 dc bytes), so the stage holds
+        // the tile's BN rows in the canonical layout
+#pragma unroll
+        for (int p = 0; p < C::PARTS; ++p) {
+          if (p >= parts || (CLUSTER > 1 && p != rank)) continue;
+          const __nv_bfloat16* chunk =
+              gw[h] + (size_t)(tile * C::PARTS + p) * C::LAID * k16 + (size_t)C::LAID * c * BK;
+          unsigned char* dst = st + h * C::B_CHUNK + p * part_bytes;
+          if constexpr (CLUSTER > 1) {
+            bulk_copy_multicast(dst, chunk, part_bytes, &full[s],
+                                static_cast<uint16_t>((1u << CLUSTER) - 1));
+          } else {
+            bulk_copy(dst, chunk, part_bytes, &full[s]);
+          }
         }
         if (!resident && !REGA && rows)
           bulk_copy(st + C::OPS * C::B_CHUNK + h * C::A_CHUNK, ga[h] + a_tile + (size_t)BM * c * BK,

@@ -47,15 +47,16 @@ KERNELS = {
 
 # the searches that count their launches by feed (``bmu.search_feed``):
 # each wrapper's ``paired`` counts those that ran as pairs of row blocks
-# sharing each codebook chunk, ``registers`` those that held A in registers
+# sharing each codebook chunk, ``registers`` those that held A in registers,
+# ``wide`` those that searched tiles of 256 codebook rows (``bmu.search_tile``)
 FED = ("bmu_argmin", "bmu_top2")
-FEEDS = ("paired", "registers")
+FEEDS = ("paired", "registers", "wide")
 
 
 def launch_counts() -> dict:
-    """Each kernel's launches by name, and ``<name>.paired`` and
-    ``<name>.registers`` for each search of ``FED``: how many of its
-    launches ran on those feeds."""
+    """Each kernel's launches by name, and ``<name>.paired``,
+    ``<name>.registers`` and ``<name>.wide`` for each search of ``FED``:
+    how many of its launches ran on those feeds, and on 256-wide tiles."""
     counts = {name: fn.launches for name, fn in KERNELS.items()}
     counts.update({f"{name}.{feed}": getattr(KERNELS[name], feed) for name in FED
                    for feed in FEEDS})

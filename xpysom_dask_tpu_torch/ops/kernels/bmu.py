@@ -76,6 +76,7 @@ __all__ = [
     "lay_out_plain",
     "lay_out_samples",
     "search_feed",
+    "search_tile",
     "bmu_argmin",
     "bmu_argmin_plain",
     "bmu_argmin_kb",
@@ -226,6 +227,10 @@ RESIDENT_K = 256
 # block, up to REGISTER_K of padded depth. search_feed picks one.
 FEED_STREAMED, FEED_PAIRS, FEED_REGISTERS = 0, 1, 2
 REGISTER_K = 256
+# K1's and K2's codebook tile on the deep feeds (A streamed, pairs): two of
+# K1_BN's laid-out tiles side by side in a stage (csrc/gemm_sm90.cuh
+# WIDE_BN)
+K1_WIDE_BN = 256
 # the H100's L2 cache: the pairs pay where the laid-out codebook exceeds it
 L2_BYTES = 50 * 2**20
 
@@ -244,6 +249,15 @@ def search_feed(n, k, xy):
     if -(-n // GEMM_BM) >= 2 and _round_up(xy, K1_BN) * k16 * 2 > L2_BYTES:
         return FEED_PAIRS
     return FEED_STREAMED
+
+
+def search_tile(feed):
+    """The codebook rows K1 and K2 search a tile on ``feed``: K1_WIDE_BN
+    on the deep feeds, where each block streams its A chunks beside the
+    codebook's and a wider tile reads them half as often; K1_BN with A in
+    registers, where A's fragments and a 256-wide accumulator set would
+    not both fit in a thread's registers."""
+    return K1_BN if feed == FEED_REGISTERS else K1_WIDE_BN
 
 
 def lay_out_plain(t, trows):
@@ -450,9 +464,12 @@ def bmu_argmin(a, w_aug, xy, w_laid=None):
     tensor cores read from shared memory; past that A streams beside each
     codebook chunk, and where the codebook exceeds L2 the blocks run as
     pairs (clusters of two) that share each codebook chunk, each
-    producer multicasting half of it into both blocks' rings. No feed
-    changes an operand or the order of the sums: the winners and values
-    are the same bits on every feed."""
+    producer multicasting half of it into both blocks' rings. On those two
+    deep feeds a tile is 256 codebook rows (:func:`search_tile`: two
+    laid-out tiles side by side in a stage, wgmma m64n256k16), so that a
+    block reads each A chunk once for every 256 units. No feed or tile
+    width changes an operand or the order of the sums: the winners and
+    values are the same bits on every feed."""
     _check_operands(a, w_aug, xy)
     if a.device.type == "cpu":
         return bmu_argmin_plain(a, w_aug, xy)
@@ -477,11 +494,13 @@ def _count_feed(fn, feed):
     fn.launches += 1
     fn.paired += int(feed == FEED_PAIRS)
     fn.registers += int(feed == FEED_REGISTERS)
+    fn.wide += int(search_tile(feed) == K1_WIDE_BN)
 
 
 bmu_argmin.launches = 0
-# the launches that ran as pairs of row blocks; with A in registers
-bmu_argmin.paired = bmu_argmin.registers = 0
+# the launches that ran as pairs of row blocks; with A in registers; on
+# tiles of K1_WIDE_BN codebook rows
+bmu_argmin.paired = bmu_argmin.registers = bmu_argmin.wide = 0
 
 # the modes whose operands K1-kb takes (the JAX package's kblock rule)
 _KB_MODES = ("packed", "bf16")
@@ -592,7 +611,7 @@ def _launch_k2(a_laid, w_laid, n, k, xy):
 
 
 bmu_top2.launches = 0
-bmu_top2.paired = bmu_top2.registers = 0
+bmu_top2.paired = bmu_top2.registers = bmu_top2.wide = 0
 
 
 def bmu_split3_plain(xh, xl, wh, wl, w_sq, xy):

@@ -207,7 +207,8 @@ def epoch_anatomy(som, data, *, lo=2, hi=8, reps=3):
     - ``<stage>_launches``: each kernel's launches during that stage
       (warm-up included; empty on the CPU, where the plain versions run),
       with ``bmu_argmin.registers`` or ``.paired`` for K1's feed
-      (``ops.kernels.bmu.search_feed``).
+      (``ops.kernels.bmu.search_feed``) and ``.wide`` for its 256-row
+      codebook tiles (``ops.kernels.bmu.search_tile``).
 
     Method (the JAX package's): each stage runs ``lo`` and ``hi`` times
     back to back inside one timed window; the best of ``reps`` windows at
