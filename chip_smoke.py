@@ -1003,6 +1003,7 @@ def phase_feeds(torch, card, ptxas):
         want[f"{name}.paired"] = per * routed.count(kb.FEED_PAIRS)
         want[f"{name}.registers"] = per * routed.count(kb.FEED_REGISTERS)
         want[f"{name}.wide"] = per * (len(routed) - routed.count(kb.FEED_REGISTERS))
+        want[f"{name}.streamed"] = per * routed.count(kb.FEED_STREAMED)
     got = {k: counts[k] for k in want}
     require(got == want, f"feeds: launches {got}, expected {want}")
     print(f"feeds: K1 and K2 bitwise equal on every feed on {len(FEED_SHAPES)} shapes "
@@ -1064,7 +1065,8 @@ def phase_feeds(torch, card, ptxas):
             moved = {key: after[key] - before[key] for key in after
                      if key.startswith(name + ".") and after[key] != before[key]}
             want = {f"{name}.registers": 1} if feed == kb.FEED_REGISTERS else {
-                f"{name}.wide": 1, **({f"{name}.paired": 1} if feed == kb.FEED_PAIRS else {})}
+                f"{name}.wide": 1,
+                f"{name}.paired" if feed == kb.FEED_PAIRS else f"{name}.streamed": 1}
             require(moved == want, f"feeds, {label}: {name} counted {moved}, expected {want}")
         print(f"feeds, {label}: the routed K1 and K2 took {FEED_NAMES[feed]}, bitwise every "
               "other feed's")

@@ -146,6 +146,7 @@ def test_k1_and_k2_feeds_equal_bitwise(card, n, xy, d):
         assert after[f"{name}.registers"] - before[f"{name}.registers"] == int(d < 500)
         assert after[f"{name}.paired"] == before[f"{name}.paired"]
         assert after[f"{name}.wide"] - before[f"{name}.wide"] == int(d == 500)
+        assert after[f"{name}.streamed"] - before[f"{name}.streamed"] == int(d == 500)
 
 
 # (samples, nodes, D) past the register depth, on the 256-wide tiles: 3
@@ -184,8 +185,8 @@ def test_wide_tiles_equal_on_both_deep_feeds_and_k10s_search(card, n, xy, d):
     for name in kernels.FED:
         moved = {key: after[key] - before[key] for key in after
                  if key.startswith(name + ".") and after[key] != before[key]}
-        assert moved == {f"{name}.wide": 1, **({f"{name}.paired": 1}
-                                               if feed == kb.FEED_PAIRS else {})}
+        assert moved == {f"{name}.wide": 1, **({f"{name}.paired": 1} if feed == kb.FEED_PAIRS
+                                               else {f"{name}.streamed": 1})}
     i_f, _ = kf.bmu_stats_fused(x, cb, torch.ones(n, device=card))
     assert torch.equal(i_f, idx), "K10's winners (128-wide tiles) are K1's"
 

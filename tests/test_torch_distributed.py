@@ -362,16 +362,18 @@ def test_training_matches_jax_mesh_and_single_process(ranks, name, cfg):
 def test_spans_over_a_data_mesh(ranks):
     """Each rank uploads the rows of its half of the chunks (the padding
     and the mask are made on its device), all_reduces the (XY, D+1)
-    statistics once an epoch and QE's two sums once."""
+    statistics once an epoch and QE's two sums once; each epoch and QE
+    build the search's codebook once."""
     x, y, d = RECT["shape"]
     chunks, _, n = port_chunk_data(_data_of(RECT), RECT["kw"]["n_parallel"], multiple_of=WORLD)
     per = chunks.shape[0] // WORLD * chunks.shape[1]
     for rank, res in enumerate(ranks):
         names, sent = list(res["span_names"]), res["span_bytes"]
         assert names == (["xpysom.train", "xpysom.prepare"] + ["xpysom.upload"] * 2
-                         + ["xpysom.epoch", "xpysom.all_reduce"] * 2 + ["xpysom.fetch"]
+                         + ["xpysom.epoch", "xpysom.codebook", "xpysom.all_reduce"] * 2
+                         + ["xpysom.fetch"]
                          + ["xpysom.quantization_error", "xpysom.prepare"] + ["xpysom.upload"] * 2
-                         + ["xpysom.all_reduce", "xpysom.fetch"])
+                         + ["xpysom.codebook", "xpysom.all_reduce", "xpysom.fetch"])
         qe = names.index("xpysom.quantization_error")
         assert len(set(res["span_calls"][:qe])) == 1 and len(set(res["span_calls"][qe:])) == 1
         uploads = [b for n, b in zip(names, sent) if n == "xpysom.upload"]

@@ -10,6 +10,7 @@ import torch
 
 from xpysom_dask_tpu_torch import XPySom
 from xpysom_dask_tpu_torch.core import chunk_data
+from xpysom_dask_tpu_torch.ops.kernels.bmu import FEED_REGISTERS
 from xpysom_dask_tpu_torch.utils import profiling
 from xpysom_dask_tpu_torch.utils.hw import training_chunk
 
@@ -59,16 +60,30 @@ def test_under_a_profiler_each_step_of_a_call_is_a_span(tmp_path, name):
         _call(som, name, data)
     recs = _new_records(before)
     root, steps = recs[0], recs[1:]
-    epochs = ["xpysom.epoch"] * (END - BEG) if name == "train" else []
+    # the search's codebook is built in each epoch, or once a scoring call
+    built = ["xpysom.epoch", "xpysom.codebook"] * (END - BEG) if name == "train" else [
+        "xpysom.codebook"]
     # two uploads: the caller's rows, then the codebook (the padding and the
     # mask are made on the device)
     assert [r["name"] for r in recs] == (
-        [f"xpysom.{name}", "xpysom.prepare"] + ["xpysom.upload"] * 2 + epochs + ["xpysom.fetch"])
-    assert root["call"] == root["id"] and root["counts"] == {"rows": ROWS}
+        [f"xpysom.{name}", "xpysom.prepare"] + ["xpysom.upload"] * 2 + built + ["xpysom.fetch"])
+    # a scoring or training call counts its K1 and K2 launches (none on the
+    # CPU, where the plain versions run)
+    counted = {} if name == "predict" else {"searches": 0, "streamed_searches": 0}
+    assert root["call"] == root["id"] and root["counts"] == {"rows": ROWS, **counted}
     assert all(r["call"] == root["id"] for r in steps)
     assert root["t0"] <= steps[0]["t0"] and steps[-1]["t1"] <= root["t1"]
-    assert all(a["t0"] <= a["t1"] <= b["t0"] <= b["t1"] for a, b in zip(steps, steps[1:]))
+    # the steps follow each other; a codebook's build lies inside its epoch
+    outer = [r for r in steps if r["name"] != "xpysom.codebook" or name != "train"]
+    assert all(a["t0"] <= a["t1"] <= b["t0"] <= b["t1"] for a, b in zip(outer, outer[1:]))
+    for epoch, book in zip(steps, steps[1:]):
+        if book["name"] == "xpysom.codebook" and name == "train":
+            assert epoch["t0"] <= book["t0"] <= book["t1"] <= epoch["t1"]
     assert all(r["counts"] == {} for r in steps if r["name"] == "xpysom.epoch")
+    # its units, the packed operand's padded depth (3 * 3 + 3 -> 16) and
+    # the feed: A held in registers at that depth
+    assert all(r["counts"] == {"units": 4 * 5, "depth": 16, "feed": FEED_REGISTERS}
+               for r in steps if r["name"] == "xpysom.codebook")
 
     chunks, _, _ = chunk_data(data, training_chunk(ROWS, CHUNK))
     codebook = np.asarray(som.get_weights(), dtype=np.float32)

@@ -3,8 +3,8 @@ codebook chunk, pairs of row blocks that share each codebook chunk (a
 cluster of two), or A held in registers; and the codebook tile each feed
 searches (256 rows on the two deep feeds, 128 with A in registers). The
 rule that picks a feed from the shape, the tile width that follows it, the
-feed each launch site passes, and the ``paired``, ``registers`` and
-``wide`` counters that ``launch_counts()`` carries. The kernels
+feed each launch site passes, and the ``paired``, ``registers``,
+``wide`` and ``streamed`` counters that ``launch_counts()`` carries. The kernels
 themselves run only on a card, where ``chip_smoke.py`` and
 ``tests/test_torch_card.py`` hold every feed to the same bits; here the C
 entry is stubbed."""
@@ -99,6 +99,7 @@ def test_launch_sites_pass_the_feed_and_count_it(stub_entry, launch, entry, name
     assert counts[name] == len(shapes)
     assert counts[f"{name}.registers"] == 2
     assert counts[f"{name}.paired"] == 1  # 16448 rows of websom-fit's codebook, not 64
+    assert counts[f"{name}.streamed"] == 2  # 64 rows of it, and a codebook within L2
     assert counts[f"{name}.wide"] == 3  # every launch past the register depth
     launch(a, a, 0, 195, 16384)  # no rows: no launch
     launch(a, a, 0, *WEBSOM[::-1])
@@ -138,15 +139,15 @@ def test_k3_and_k1_kb_keep_their_entries(stub_entry):
 
 def test_launch_counts_carry_the_feeds_beside_each_kernels_launches(stub_entry):
     kb.bmu_argmin.launches, kb.bmu_argmin.paired, kb.bmu_argmin.registers = 5, 3, 1
-    kb.bmu_argmin.wide = 4
+    kb.bmu_argmin.wide, kb.bmu_argmin.streamed = 4, 1
     kb.bmu_top2.launches, kb.bmu_top2.registers = 2, 2
     counts = kernels.launch_counts()
-    assert kernels.FEEDS == ("paired", "registers", "wide")
+    assert kernels.FEEDS == ("paired", "registers", "wide", "streamed")
     assert set(counts) == set(kernels.KERNELS) | {
         f"{n}.{f}" for n in kernels.FED for f in kernels.FEEDS}
     assert {k: v for k, v in counts.items() if v} == {
         "bmu_argmin": 5, "bmu_argmin.paired": 3, "bmu_argmin.registers": 1,
-        "bmu_argmin.wide": 4, "bmu_top2": 2, "bmu_top2.registers": 2}
+        "bmu_argmin.wide": 4, "bmu_argmin.streamed": 1, "bmu_top2": 2, "bmu_top2.registers": 2}
     kernels.reset_launch_counts()
     assert set(kernels.launch_counts().values()) == {0}
 

@@ -248,7 +248,7 @@ def _centers(dist: DistanceFunction) -> bool:
     return _kernel_bmu_kind(dist) in ("euclidean", "norm_p_even")
 
 
-def _searcher(spec: SomSpec, dist: DistanceFunction, w_flat, center=None):
+def _searcher(spec: SomSpec, dist: DistanceFunction, w_flat, center=None, rows=None):
     """The codebook side of the BMU search under ``dist``, built once per
     epoch (or scoring call) and shared by every chunk: an object with
     ``argmin(x, use_kernels) -> (idx, val)``. The routes of the JAX core's
@@ -256,23 +256,48 @@ def _searcher(spec: SomSpec, dist: DistanceFunction, w_flat, center=None):
     searches by euclidean distance whatever the activation, under the
     spec's mode. ``center`` (a (D,) tensor) replaces the codebook's own
     mean where the search centres (:func:`_centers`): a codebook shard
-    passes the full codebook's."""
+    passes the full codebook's. Built in an ``xpysom.codebook`` span
+    (:func:`_codebook`); ``rows``, the rows of a chunk, names the feed."""
     kind = _kernel_bmu_kind(dist)
     mode = spec.bmu_precision
     own = True if center is None else center
-    if kind == "euclidean":
-        return kbmu.PackedCodebook(w_flat, mode, center=own)
-    if kind == "cosine":
-        return kbmu.cosine_codebook(w_flat, mode)
-    if kind == "norm_p_even":
-        return kbmu.NormPEvenCodebook(w_flat, dist.kwargs.get("p", 2), mode, center=own)
-    if kind == "manhattan":
-        return kel.ElementwiseCodebook(w_flat, kind)
-    if kind in ("norm_p_odd", "norm_p_frac"):
-        # no default p: the gate routes here only for an explicit odd or
-        # non-integer p
-        return kel.ElementwiseCodebook(w_flat, kind, dist.kwargs["p"])
-    return _MatrixSearch(dist, w_flat)
+
+    def build():
+        if kind == "euclidean":
+            return kbmu.PackedCodebook(w_flat, mode, center=own)
+        if kind == "cosine":
+            return kbmu.cosine_codebook(w_flat, mode)
+        if kind == "norm_p_even":
+            return kbmu.NormPEvenCodebook(w_flat, dist.kwargs.get("p", 2), mode, center=own)
+        if kind == "manhattan":
+            return kel.ElementwiseCodebook(w_flat, kind)
+        if kind in ("norm_p_odd", "norm_p_frac"):
+            # no default p: the gate routes here only for an explicit odd or
+            # non-integer p
+            return kel.ElementwiseCodebook(w_flat, kind, dist.kwargs["p"])
+        return _MatrixSearch(dist, w_flat)
+
+    return _codebook(spec, build, w_flat, rows)
+
+
+def _codebook(spec: SomSpec, build, w_flat, rows=None):
+    """``build()``, the search's side of the codebook ``w_flat``, in an
+    ``xpysom.codebook`` span: its normalisation or centring and packing,
+    and on the card the layout the kernels read (``laid()``), made here
+    once and not at the first chunk. The span counts ``units`` and, where
+    K1 or K2 search the codebook in chunks of ``rows`` rows, the packed
+    operand's padded ``depth`` and the ``feed`` that ``kbmu.search_feed``
+    picks (``kbmu.FEED_STREAMED``, ``FEED_PAIRS`` or ``FEED_REGISTERS``)."""
+    with annotate("xpysom.codebook", units=w_flat.shape[0]) as span:
+        search = build()
+        packed = getattr(search, "_gemm", search)  # the norm_p expansion's codebook
+        if (spec.use_kernels and w_flat.device.type == "cuda" and hasattr(packed, "laid")
+                and getattr(packed, "mode", None) != "highest"):  # K4 reads no layout
+            packed.laid()
+        fed = packed.search_feed(rows) if rows and isinstance(packed, kbmu.PackedCodebook) else None
+        if fed is not None:
+            span.add(depth=fed[0], feed=fed[1])
+    return search
 
 
 def _bmu_chunk(spec: SomSpec, search, x):
@@ -365,7 +390,7 @@ def make_stats_fn(spec: SomSpec, mesh=None):
     def run(w, data, mask, acc=None):
         if acc is not None and mesh is not None:
             raise ValueError("a running acc is carried without a mesh, then reduced once")
-        search = _searcher(spec, dist, w.reshape(spec.xy, spec.input_len))
+        search = _searcher(spec, dist, w.reshape(spec.xy, spec.input_len), rows=data.shape[1])
         return _all_reduce_sum(_accumulate_stats(spec, search, data, mask, acc), mesh)
 
     return run
@@ -427,7 +452,7 @@ def make_bmu_fn(spec: SomSpec, mesh=None):
     dist = spec.distance_fn()
 
     def run(w, data):
-        search = _searcher(spec, dist, w.reshape(spec.xy, spec.input_len))
+        search = _searcher(spec, dist, w.reshape(spec.xy, spec.input_len), rows=data.shape[1])
         return torch.stack([_bmu_chunk(spec, search, data[c]) for c in range(data.shape[0])])
 
     return run
@@ -442,7 +467,7 @@ def make_quantization_stats_fn(spec: SomSpec, mesh=None):
 
     def run(w, data, mask):
         w_flat = w.reshape(spec.xy, spec.input_len)
-        search = _searcher(spec, eucl, w_flat)
+        search = _searcher(spec, eucl, w_flat, rows=data.shape[1])
         tot = torch.zeros((), dtype=_F32, device=w.device)
         n = torch.zeros((), dtype=_F32, device=w.device)
         for c in range(data.shape[0]):
@@ -485,7 +510,8 @@ def make_topographic_stats_fn(spec: SomSpec, mesh=None):
     mode = te_fused_mode(spec)
 
     def run(w, data, mask):
-        cb = kbmu.PackedCodebook(w.reshape(spec.xy, spec.input_len), mode)
+        w_flat = w.reshape(spec.xy, spec.input_len)
+        cb = _codebook(spec, lambda: kbmu.PackedCodebook(w_flat, mode), w_flat, data.shape[1])
         xx = torch.as_tensor(xx_np, dtype=_F32, device=w.device)
         yy = torch.as_tensor(yy_np, dtype=_F32, device=w.device)
         errs = torch.zeros((), dtype=_F32, device=w.device)

@@ -42,6 +42,7 @@ the full codebook, gathered over its model group.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import Counter, defaultdict
@@ -53,6 +54,7 @@ import torch
 
 from .. import core
 from ..core import SomSpec
+from ..ops import kernels
 from ..ops.decays import DECAY_REGISTRY
 from ..ops.distances import DistanceFunction, euclidean_distance, manhattan_distance_no_opt
 from ..parallel import grid_sharded
@@ -104,6 +106,25 @@ def _chunks_on(data2d: np.ndarray, chunk: int, mesh, device):
     with annotate("xpysom.upload", bytes=(hi - lo) * d * 4):
         chunks, mask = _feed(data2d[lo:hi], c, chunk, device)
     return chunks, mask, n
+
+
+def _search_launches() -> dict:
+    """K1's and K2's launches so far (``searches``), and those of them with
+    A streamed (``streamed_searches``): what a call span counts of its
+    searches."""
+    counts = kernels.launch_counts()
+    return {"searches": sum(counts[n] for n in kernels.FED),
+            "streamed_searches": sum(counts[f"{n}.streamed"] for n in kernels.FED)}
+
+
+@contextlib.contextmanager
+def _call_span(name: str):
+    """The call span ``name`` (``annotate``), which also counts the call's
+    K1 and K2 launches (:func:`_search_launches`)."""
+    with annotate(name) as span:
+        before = _search_launches()
+        yield span
+        span.add(**{k: v - before[k] for k, v in _search_launches().items()})
 
 
 def _scalar_ratio(total, count) -> float:
@@ -613,7 +634,7 @@ class XPySom:
         ends with the same codebook, and rank 0 writes the checkpoints.
         Over a grid each rank trains its X-slice on its data index's
         chunks and every rank ends with the full codebook."""
-        with annotate("xpysom.train") as span:
+        with _call_span("xpysom.train") as span:
             return self._train(span, data, num_epochs, iter_beg, iter_end, verbose,
                                checkpoint_path, checkpoint_every)
 
@@ -720,7 +741,7 @@ class XPySom:
         """Mean distance between samples and their BMU code vectors.
         Source-like data streams in superbatches, folding (Σ errors,
         Σ count) on the host."""
-        with annotate("xpysom.quantization_error") as span:
+        with _call_span("xpysom.quantization_error") as span:
             src = self._as_source(data)
             if src is not None:
                 fn = core.make_quantization_stats_fn(self._spec)
@@ -755,7 +776,7 @@ class XPySom:
         if self._x * self._y == 1:
             warn("The topographic error is not defined for a 1-by-1 map.")
             return np.nan
-        with annotate("xpysom.topographic_error") as span:
+        with _call_span("xpysom.topographic_error") as span:
             src = self._as_source(data)
             if src is not None:
                 fn = core.make_topographic_stats_fn(self._spec)

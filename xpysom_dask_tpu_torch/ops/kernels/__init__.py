@@ -48,15 +48,18 @@ KERNELS = {
 # the searches that count their launches by feed (``bmu.search_feed``):
 # each wrapper's ``paired`` counts those that ran as pairs of row blocks
 # sharing each codebook chunk, ``registers`` those that held A in registers,
-# ``wide`` those that searched tiles of 256 codebook rows (``bmu.search_tile``)
+# ``wide`` those that searched tiles of 256 codebook rows (``bmu.search_tile``),
+# ``streamed`` those that streamed A beside each codebook chunk, one block a
+# row block
 FED = ("bmu_argmin", "bmu_top2")
-FEEDS = ("paired", "registers", "wide")
+FEEDS = ("paired", "registers", "wide", "streamed")
 
 
 def launch_counts() -> dict:
     """Each kernel's launches by name, and ``<name>.paired``,
-    ``<name>.registers`` and ``<name>.wide`` for each search of ``FED``:
-    how many of its launches ran on those feeds, and on 256-wide tiles."""
+    ``<name>.registers``, ``<name>.wide`` and ``<name>.streamed`` for each
+    search of ``FED``: how many of its launches ran on those feeds, and on
+    256-wide tiles."""
     counts = {name: fn.launches for name, fn in KERNELS.items()}
     counts.update({f"{name}.{feed}": getattr(KERNELS[name], feed) for name in FED
                    for feed in FEEDS})

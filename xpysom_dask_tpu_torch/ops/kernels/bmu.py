@@ -494,13 +494,14 @@ def _count_feed(fn, feed):
     fn.launches += 1
     fn.paired += int(feed == FEED_PAIRS)
     fn.registers += int(feed == FEED_REGISTERS)
+    fn.streamed += int(feed == FEED_STREAMED)
     fn.wide += int(search_tile(feed) == K1_WIDE_BN)
 
 
 bmu_argmin.launches = 0
-# the launches that ran as pairs of row blocks; with A in registers; on
-# tiles of K1_WIDE_BN codebook rows
-bmu_argmin.paired = bmu_argmin.registers = bmu_argmin.wide = 0
+# the launches that ran as pairs of row blocks; with A in registers; with A
+# streamed; on tiles of K1_WIDE_BN codebook rows
+bmu_argmin.paired = bmu_argmin.registers = bmu_argmin.streamed = bmu_argmin.wide = 0
 
 # the modes whose operands K1-kb takes (the JAX package's kblock rule)
 _KB_MODES = ("packed", "bf16")
@@ -611,7 +612,7 @@ def _launch_k2(a_laid, w_laid, n, k, xy):
 
 
 bmu_top2.launches = 0
-bmu_top2.paired = bmu_top2.registers = bmu_top2.wide = 0
+bmu_top2.paired = bmu_top2.registers = bmu_top2.streamed = bmu_top2.wide = 0
 
 
 def bmu_split3_plain(xh, xl, wh, wl, w_sq, xy):
@@ -883,6 +884,17 @@ class PackedCodebook:
                 src = [(self.w_aug, K1_BN)]
             self._laid = tuple(lay_out(_codebook_rows(t, self.xy), tr) for t, tr in src)
         return self._laid
+
+    def search_feed(self, n):
+        """``(depth, feed)`` of K1's and K2's search of ``n`` rows against
+        this codebook: the packed operand's padded depth and the feed
+        :func:`search_feed` picks (under ``'margin'``, K2's first pass);
+        None in the modes K1 and K2 do not serve (``'split3'``,
+        ``'highest'``)."""
+        if self.mode not in _AUG_MODES + ("margin",):
+            return None
+        k16 = self.w_aug.shape[0]
+        return k16, search_feed(n, k16, self.xy)
 
     def _centered(self, x):
         x = x.float()

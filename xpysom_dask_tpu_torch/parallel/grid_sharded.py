@@ -308,8 +308,10 @@ def make_topographic_stats_fn_2d(spec: SomSpec, mesh):
 
     def run(w_local, data, mask):
         offset = mesh.model.rank * rows
-        cb = kbmu.PackedCodebook(w_local.reshape(rows, spec.input_len), mode,
-                                 center=grid_center(w_local, mesh))
+        w_flat = w_local.reshape(rows, spec.input_len)
+        cb = core._codebook(
+            spec, lambda: kbmu.PackedCodebook(w_flat, mode, center=grid_center(w_local, mesh)),
+            w_flat, data.shape[1])
         xx = torch.as_tensor(xx_np, dtype=_F32, device=w_local.device)
         yy = torch.as_tensor(yy_np, dtype=_F32, device=w_local.device)
         errs = torch.zeros((), dtype=_F32, device=w_local.device)

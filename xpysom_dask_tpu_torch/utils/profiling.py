@@ -206,7 +206,7 @@ def epoch_anatomy(som, data, *, lo=2, hi=8, reps=3):
     - ``<stage>_method``: how the stage was timed, as in the JAX package;
     - ``<stage>_launches``: each kernel's launches during that stage
       (warm-up included; empty on the CPU, where the plain versions run),
-      with ``bmu_argmin.registers`` or ``.paired`` for K1's feed
+      with ``bmu_argmin.registers``, ``.paired`` or ``.streamed`` for K1's feed
       (``ops.kernels.bmu.search_feed``) and ``.wide`` for its 256-row
       codebook tiles (``ops.kernels.bmu.search_tile``).
 
